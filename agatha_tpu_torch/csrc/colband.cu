@@ -15,66 +15,78 @@
 // antidiagonal kernel and to the oracle align_one_sweep.
 //
 // Layout.  The Pallas kernel puts 128 pairs on lanes and the RW window
-// rows on sublanes.  Here one block owns one pair.  Thread t owns the 8
-// window rows 8t .. 8t+7, one row block of the reference (pr = r >> 3),
-// so the slice / chunk algebra of a group of 8 columns is a handful of
-// scalars per thread, computed once per group; only the band test varies
-// per row and column.  H, F and the 8 target codes (one 32-bit word of
-// the nibble wire) live in registers.  RW / 8 threads (192 at band 751),
-// rounded up to whole warps, plus one warp whose lane 0 runs the chain.
+// rows on sublanes.  Here one block owns one pair.  Thread t owns the R
+// window rows Rt .. Rt+R-1 (R = 2, 4 or 8, a template parameter), inside
+// one row block of the reference (pr = r >> 3), so the slice / chunk
+// algebra of a group of 8 columns is a handful of scalars per thread,
+// computed once per group and shared by the 8 / R threads of a row
+// block; only the band test varies per row and column.  H, F, the R
+// target codes (a byte, a half or a whole 32-bit word of the nibble
+// wire) and their mismatch scores live in registers.  RW / R row
+// threads, rounded up to whole warps, plus one chain warp, within the
+// instance's launch bound (colband_max_threads): R = 2 takes RW <= 1984,
+// R = 4 RW <= 1536, R = 8 every window up to 4096.
 //
 // Per column, two barriers:
 //   A  every thread has published the H of its last row (hl[t]); thread t
 //      reads hl[t-1] as the diagonal-H input of its first row (top_h at
 //      window row 0, which stands for the row that slid out above);
-//   pass 1: temp and gv(rw) = ge*rw + (C ? temp - goe : top_e) for the 8
+//   pass 1: temp and gv(rw) = ge*rw + (C ? temp - goe : top_e) for the R
 //      rows, and their maximum;
 //   the exclusive prefix maximum of those maxima over threads: a shuffle
-//      scan in each warp, the warps' totals through shared memory
-//   B  and e_in(rw) = max(top_e - ge, max over rw' < rw of gv(rw'))
+//      scan in each row warp, which posts its total in shared memory
+//   B  then every row warp reduces the totals of the warps before it
+//      (one load a lane, one warp reduction: no loop over warps), and
+//      e_in(rw) = max(top_e - ge, max over rw' < rw of gv(rw'))
 //      - (ge*rw - ge), the Pallas kernel's plain-weight form literally
 //      (integers, so the order of the maxima does not matter);
 //   pass 2: H, F committed where C, and (H << 16) + r max-merged into
 //      diagonal r + j of the ring.  Within a column every row hits
 //      another diagonal, so no atomics; barrier A of the next column
 //      orders the columns.
+// A row's updates are Hopper's DPX three-operand maxima (__vimax3_s32,
+// __viaddmax_s32), one instruction each on the row's dependent chain.
 // The window origin w0(g) = clip(8g - LEAD, 0, WMAX) moves 8 rows per
 // group between the pinned phases; then every thread hands its rows to
-// thread t - 1 through shared memory (one more barrier, once per group)
-// and the last thread takes fresh rows (H = F = MINUS_INF2).
+// thread t - 8 / R through shared memory (one more barrier, once per
+// group) and the last 8 / R row threads take fresh rows (H = F =
+// MINUS_INF2).
 //
 // The ring holds diagonals modulo a power of two >= RW + 32, padded by
-// one entry in 32 so that the 32 lanes of a warp, whose rows are 8 apart,
-// hit 32 banks.  Diagonals below w0(g) + 8g - 8 are final
-// when group g starts.  Lane 0 of the last warp replays
-// diag_chain_banded_np over them, two diagonals per column while the
-// other warps sweep the next columns, and resets each entry it has read.
-// It publishes "finished" (Z-drop, or the end cap end_p) once per group;
-// the block then stops: nothing later changes the four outputs.  Columns
-// at or past qlen compute nothing, so the sweep stops there and the
-// chain lane runs the remaining diagonals alone.
+// one entry in 32 so that the 32 lanes of a warp, whose rows are R
+// apart, hit (nearly) 32 banks.  Diagonals below w0(g) + 8g - 8 are
+// final when group g starts, at most 16 more than a group before.  The
+// chain warp replays diag_chain_banded_np over them in one round a
+// group, beside pass 2 of the group's first column (chain_round: one
+// diagonal a lane, a prefix maximum over lanes of (score, earlier lane
+// first) after the carried best, each lane's Z-drop test against the
+// best before it, the first failing lane by a ballot), and resets each
+// entry it has read.  Lane 0 publishes "finished" (Z-drop, or the end
+// cap end_p) once per group; the block then stops: nothing later
+// changes the four outputs.  Columns at or past qlen compute nothing,
+// so the sweep stops there and the chain warp runs the remaining
+// diagonals alone, 32 a round.
 //
 // What bounds it on this card.  ~12 int32 operations per in-band cell
-// and few bytes, so operations; but a 128-pair bucket is 128 blocks of
-// ~7 warps on 132 SMs, one warp per scheduler or two, and each column is
-// a chain of two barriers, a shuffle scan and 8 dependent rows.  That
-// chain sets the time: three resident blocks per SM (the probe's
-// launch) run a column in about half the time one block does.  The `kSplit` instance times
-// the parts of a column with clock64 (probes/colband_bench.py:
-// column_split).  On the headline's fewest-column bucket a column takes
-// ~1980 cycles, and no warp is busy for more than ~1300 of them: the
-// rest is waiting at the two barriers for the slowest warp.  Pass 1
-// takes ~535 cycles in the warps that share a scheduler with another row
-// warp and ~330 in those that do not, and the chain lane's two steps
-// ~450 against pass 2's ~310 (PERF.md, Findings).  A version without a
-// block barrier per column (warps handing their E carry and last row's
-// H down through shared-memory slot rings, skewed warps, progress flags
-// for the roll, the chain lane's frontier and the early exit) took
-// ~1855 cycles, since skewed warps still wait for the slowest one's
-// passes; it stayed slower than the antidiagonal kernel on the same
-// bucket and did not move the colband wall, so this simpler design
-// stays.  Fewer instructions per row, or more resident warps per pair
-// (4 rows a thread), are the levers left.
+// and few bytes, so operations; but a 128-pair bucket is 128 blocks on
+// 132 SMs, one block an SM, and each column is a chain of two barriers,
+// a shuffle scan and R dependent rows: latency, not issue, sets it.
+// The first layout (R = 8 and lane 0 stepping the chain two diagonals
+// a column) took ~1980 cycles a column at RW 1536 with no warp busy for
+// more than ~1300 of them.  The instances' clock64 split (the `kSplit`
+// instances, probes/colband_bench.py:column_split; PERF.md) shows a
+// fixed ~1000 cycles a column (the two barriers, the ~280-cycle warp
+// scan, the group steps) plus the rows' passes, which shrink with R
+// until the barriers and the scan of more warps cost more than they
+// hide: the instance of 8-12 row warps was the fastest at bands
+// 255-2001 and within 1% of it at 127, so the wrapper takes the fewest
+// rows a thread that keep RW / R within 384 threads
+// (ops/colband.py:colband_rows).  Lane 0's chain steps
+// (400-840 cycles a column) outlasted pass 2 at every R, so the whole
+// chain warp took them over.  A version without a block barrier per
+// column (warps handing their E carry down through shared-memory slot
+// rings, skewed) gained only 4.6%, since skewed warps still waited
+// for the slowest one's passes, and was not kept.
 //
 // probe_kernel keeps this structure (rows in registers, the scan, the
 // ring, the chain lane, a rolling window every group) with the probe's
@@ -93,7 +105,16 @@ constexpr int kMinusInf2 = -16384;  // SHRT_MIN / 2, the strip sentinel
 constexpr int kNValue = 14;         // 4-bit code of 'N'
 constexpr int kNPenalty = 1;
 constexpr int kNegBig = -(1 << 28);  // scan fill: loses every max
-constexpr int kMaxThreads = 576;     // 4096 / 8 row threads + chain warp
+constexpr int kMaxThreads = 576;     // the probe: 4096 / 8 row threads + a warp
+
+// Threads a block of colband_kernel<R> may have, its launch bound: 4096 /
+// R row threads and the chain warp, at most 1024; but R = 4 only the
+// largest block ops/colband.py:colband_rows gives it (384 row threads and
+// the chain warp), under which ptxas schedules it ~2% faster at RW 1536
+// (probes/colband_bench.py:bound_ab; R = 2 measured no faster so).
+__host__ __device__ constexpr int colband_max_threads(int R) {
+  return R == 4 ? 384 + 32 : 4096 / R + 32 < 1024 ? 4096 / R + 32 : 1024;
+}
 
 struct Params {
   const int32_t* scal;
@@ -101,13 +122,14 @@ struct Params {
   const uint8_t* qfwd;
   int32_t* out;
   int gb, wt, qf, RW, Qpad, LEAD, WMAX;
-  int nb, nbpad, rs;  // row threads, rounded to warps; ring entries
+  int R, nb, nbpad, rs;  // rows a thread; row threads, rounded to warps;
+                         // ring entries
   int match, mismatch, goe, ge, sw, z, bw;
 };
 
 // Ring slot of diagonal d (rs a power of two): one pad entry after every
-// 32, so d, d + 8, d + 16, ... (the rows of a warp's 32 lanes) fall in
-// 32 different banks.  The ring takes ring_ints(rs) ints.
+// 32, so d, d + R, d + 2R, ... (the rows of a warp's 32 lanes) fall in
+// (nearly) 32 different banks.  The ring takes ring_ints(rs) ints.
 __device__ __forceinline__ int ring_slot(int d, int rs) {
   const int x = d & (rs - 1);
   return x + (x >> 5);
@@ -129,10 +151,11 @@ __device__ __forceinline__ int pack_hr(int h, int r) {
 
 // Exclusive prefix maximum of `a` over the block's threads, in thread
 // order (kNegBig for thread 0), in two halves: warp_excl_max scans the
-// warp and posts its total in wtot (32 ints of shared memory);
-// merge_warp_totals holds one __syncthreads() and merges the totals of
-// the warps before.  wtot is free again once every thread has returned
-// and passed another barrier.
+// warp and posts its total in wtot (32 ints of shared memory); after a
+// __syncthreads(), warps_before (the sweep) or merge_warp_totals (the
+// probe, with the barrier inside) merges the totals of the warps
+// before.  wtot is free again once every thread has returned and passed
+// another barrier.
 __device__ __forceinline__ int warp_excl_max(int a, int* wtot) {
   const int lane = threadIdx.x & 31;
   int inc = a;
@@ -147,6 +170,14 @@ __device__ __forceinline__ int warp_excl_max(int a, int* wtot) {
   return exc;
 }
 
+// The maximum of the totals of the warps before this one: a load a lane
+// and one warp reduction, whatever the number of warps (at most 32).
+__device__ __forceinline__ int warps_before(const int* wtot) {
+  const int lane = threadIdx.x & 31;
+  const int w = static_cast<int>(threadIdx.x >> 5);
+  return __reduce_max_sync(~0u, lane < w ? wtot[lane] : kNegBig);
+}
+
 __device__ __forceinline__ int merge_warp_totals(int exc, const int* wtot) {
   __syncthreads();
   for (int w = 0; w < static_cast<int>(threadIdx.x >> 5); ++w)
@@ -158,29 +189,38 @@ __device__ __forceinline__ int block_excl_max(int a, int* wtot) {
   return merge_warp_totals(warp_excl_max(a, wtot), wtot);
 }
 
-// Hands every thread's 8 rows of H and F to thread t - 1 (the window
-// moves down 8 rows); the last row thread takes kMinusInf2.  Call
-// publish, a barrier, then take.
-__device__ __forceinline__ void shift_publish(const int (&H)[8],
-                                              const int (&F)[8], int* xs,
+// Hands every thread's R rows of H and F to thread t - 8 / R (the window
+// moves down 8 rows); the last 8 / R row threads take kMinusInf2.  Call
+// publish, a barrier, then take.  xs holds (2R, nbpad) ints.
+template <int R>
+__device__ __forceinline__ void shift_publish(const int (&H)[R],
+                                              const int (&F)[R], int* xs,
                                               int nbpad, int t) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < R; ++i) {
     xs[i * nbpad + t] = H[i];
-    xs[(8 + i) * nbpad + t] = F[i];
+    xs[(R + i) * nbpad + t] = F[i];
   }
 }
 
-__device__ __forceinline__ void shift_take(int (&H)[8], int (&F)[8],
+template <int R>
+__device__ __forceinline__ void shift_take(int (&H)[R], int (&F)[R],
                                            const int* xs, int nbpad, int nb,
                                            int t) {
-  const bool last = t + 1 >= nb;
+  const int src = t + 8 / R;
+  const bool last = src >= nb;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    H[i] = last ? kMinusInf2 : xs[i * nbpad + t + 1];
-    F[i] = last ? kMinusInf2 : xs[(8 + i) * nbpad + t + 1];
+  for (int i = 0; i < R; ++i) {
+    H[i] = last ? kMinusInf2 : xs[i * nbpad + src];
+    F[i] = last ? kMinusInf2 : xs[(R + i) * nbpad + src];
   }
 }
+
+// R 4-bit target codes, low nibble first: one load of R / 2 bytes.
+template <int R> struct Codes;
+template <> struct Codes<2> { using T = uint8_t; };
+template <> struct Codes<4> { using T = uint16_t; };
+template <> struct Codes<8> { using T = uint32_t; };
 
 // The reference's per-diagonal best / Z-drop state of one pair.
 struct Chain {
@@ -188,53 +228,103 @@ struct Chain {
   bool term;
 };
 
-// One step of diag_chain_banded_np at diagonal c.next (< end_p, not
-// terminated) with per-diagonal maximum x.
-__device__ __forceinline__ void chain_step(Chain& c, int x, int i_end8,
-                                           int n_diags, int z, int ge) {
-  const int d = c.next++;
-  ++c.diags;  // counts the terminating diagonal too
-  if ((d < i_end8 && d < n_diags) || d >= i_end8) {
-    const int th = x >> 16;
-    const int tr = x & 0xFFFF;
-    const int dq = d - tr;
-    if (th > c.ms) {
-      c.ms = th;
-      c.mr = tr;
-      c.mq = dq;
-    } else if (tr >= c.mr && dq >= c.mq) {
-      const int gap = abs((tr - c.mr) - (dq - c.mq));
-      if (z >= 0 && c.ms - th > z + gap * ge) c.term = true;
-    }
+// diag_chain_banded_np over diagonals c.next .. c.next + n - 1 (n =
+// min(32, limit - c.next) > 0, all final, c not terminated) by the 32
+// lanes of one warp, one diagonal a lane; c is the same in every lane
+// before and after.  Each lane reads its ring entry and resets it.
+// Diagonal d counts (diags) whether or not its gate lets it update the
+// state.  The state before lane l is the carried best unless an earlier
+// lane of the round beats it strictly (a prefix maximum of (score,
+// earlier lane first)); the round stops at the first lane whose Z-drop
+// test fails, which counts too, as the serial replay does.
+__device__ __forceinline__ void chain_round(Chain& c, int* ring, int rs,
+                                            int limit, int i_end8,
+                                            int n_diags, int z, int ge) {
+  const int lane = threadIdx.x & 31;
+  const int n = min(32, limit - c.next);
+  const int d = c.next + lane;
+  int x = INT_MIN;
+  if (lane < n) {
+    int* const slot = ring + ring_slot(d, rs);
+    x = *slot;
+    *slot = INT_MIN;
   }
+  const bool gate =
+      lane < n && ((d < i_end8 && d < n_diags) || d >= i_end8);
+  const int th = x >> 16;
+  const int tr = x & 0xFFFF;
+  const int dq = d - tr;
+  int key = gate ? static_cast<int>((static_cast<uint32_t>(th) << 5) |
+                                    static_cast<uint32_t>(31 - lane))
+                 : INT_MIN;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(~0u, key, o);
+    if (lane >= o) key = max(key, u);
+  }
+  int ex = __shfl_up_sync(~0u, key, 1);
+  if (lane == 0) ex = INT_MIN;
+  const int wl = 31 - (ex & 31);
+  const int wv = __shfl_sync(~0u, x, wl);
+  int pms = c.ms, pmr = c.mr, pmq = c.mq;
+  if ((ex >> 5) > c.ms) {
+    pms = ex >> 5;
+    pmr = wv & 0xFFFF;
+    pmq = c.next + wl - pmr;
+  }
+  const bool stop = gate && z >= 0 && !(th > pms) && tr >= pmr &&
+                    dq >= pmq &&
+                    pms - th > z + abs((tr - pmr) - (dq - pmq)) * ge;
+  const unsigned fail = __ballot_sync(~0u, stop);
+  const int all = __shfl_sync(~0u, key, 31);
+  const int al = 31 - (all & 31);
+  const int av = __shfl_sync(~0u, x, al);
+  if (fail != 0) {
+    const int l = __ffs(fail) - 1;
+    c.ms = __shfl_sync(~0u, pms, l);
+    c.mr = __shfl_sync(~0u, pmr, l);
+    c.mq = __shfl_sync(~0u, pmq, l);
+    c.diags += l + 1;
+    c.next += l + 1;
+    c.term = true;
+    return;
+  }
+  if ((all >> 5) > c.ms) {
+    c.ms = all >> 5;
+    c.mr = av & 0xFFFF;
+    c.mq = c.next + al - c.mr;
+  }
+  c.diags += n;
+  c.next += n;
 }
 
 // Shared memory of colband_kernel, in ints: the ring, the rolled rows
-// xs (16, nbpad), hl (nbpad), wtot (32) and the flag.
+// xs (2R, nbpad), hl (nbpad), wtot (32) and the flag.
 __host__ __device__ __forceinline__ int colband_smem_ints(const Params& p) {
-  return ring_ints(p.rs) + 17 * p.nbpad + 32 + 1;
+  return ring_ints(p.rs) + (2 * p.R + 1) * p.nbpad + 32 + 1;
 }
 
-// kSplit: lane 0 of every warp adds up clock64 cycles per part of a
-// column into split[(block * warps + warp) * 8 + part]: 0 barrier A (the
-// column's prologue with it), 1 pass 1, 2 the warp scan, 3 barrier B and
-// the loop over the warps' totals, 4 pass 2 with the ring writes (the
-// chain lane: its chain steps), 5 the group steps (the roll, the slice
-// algebra, the group's barrier), 6 the columns.
-template <bool kSplit>
-__global__ void __launch_bounds__(kMaxThreads)
+// R rows a thread.  kSplit: lane 0 of every warp adds up clock64 cycles
+// per part of a column into split[(block * warps + warp) * 8 + part]:
+// 0 barrier A (the column's prologue with it), 1 pass 1, 2 the warp
+// scan, 3 barrier B and the merge of the warps' totals, 4 pass 2 with
+// the ring writes (the chain warp: its chain rounds), 5 the group steps
+// (the roll, the slice algebra, the group's barrier), 6 the columns.
+template <int R, bool kSplit>
+__global__ void __launch_bounds__(colband_max_threads(R))
 colband_kernel(const Params p, long long* split) {
   extern __shared__ int smem[];
   int* const ring = smem;
   int* const xs = ring + ring_ints(p.rs);
-  int* const hl = xs + 16 * p.nbpad;
+  int* const hl = xs + 2 * R * p.nbpad;
   int* const wtot = hl + p.nbpad;
   int* const flag = wtot + 32;
 
   const int t = threadIdx.x;
   const int pair = blockIdx.x;
   const bool active = t < p.nb;
-  const bool chain_lane = t == p.nbpad;
+  const bool chain_warp = t >= p.nbpad;  // the last warp
+  const bool chain_lane = t == p.nbpad;  // its lane 0
   const int qlen = min(p.scal[pair], p.Qpad);
   const int rlen = p.scal[p.gb + pair];
   const int i_end8 = p.scal[2 * p.gb + pair];
@@ -242,7 +332,8 @@ colband_kernel(const Params p, long long* split) {
   const int end_p = p.scal[4 * p.gb + pair];
   const int pql = (p.scal[pair] + 7) >> 3;
   const int prl = (rlen + 7) >> 3;
-  const uint32_t* const trow = reinterpret_cast<const uint32_t*>(
+  using CodeT = typename Codes<R>::T;
+  const CodeT* const trow = reinterpret_cast<const CodeT*>(
       p.tcodes + static_cast<size_t>(pair) * (p.wt >> 1));
   const uint32_t* const qrow = reinterpret_cast<const uint32_t*>(
       p.qfwd + static_cast<size_t>(pair) * (p.qf >> 1));
@@ -257,12 +348,14 @@ colband_kernel(const Params p, long long* split) {
     }
   };
 
-  // the first window: left-strip inits for rows inside the band
-  int H[8], F[8];
+  // the rows' E weights ge * rw, and the first window: left-strip inits
+  // for rows inside the band
+  int wr[R], H[R], F[R];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int rw = 8 * t + i;
-    const int k0 = -(goe + ge * rw);
+  for (int i = 0; i < R; ++i) {
+    const int rw = R * t + i;
+    wr[i] = ge * rw;
+    const int k0 = -(goe + wr[i]);
     H[i] = rw <= bw ? k0 : kMinusInf2;
     F[i] = rw <= bw ? k0 - goe : kMinusInf2;
   }
@@ -277,24 +370,28 @@ colband_kernel(const Params p, long long* split) {
     const int w0 = min(max(8 * g - p.LEAD, 0), p.WMAX);
     const bool rolling = w0 != w0_prev;
     w0_prev = w0;
-    if (rolling && active) shift_publish(H, F, xs, p.nbpad, t);
+    if (rolling && active) shift_publish<R>(H, F, xs, p.nbpad, t);
     if (chain_lane) *flag = c.term || c.next >= end_p;
     __syncthreads();
     if (*flag) break;
-    if (rolling && active) shift_take(H, F, xs, p.nbpad, p.nb, t);
+    if (rolling && active) shift_take<R>(H, F, xs, p.nbpad, p.nb, t);
 
-    const int pr = (w0 >> 3) + t;
-    const int rbase = 8 * pr;
-    const uint32_t tword = (active && rbase < p.wt) ? trow[pr] : 0u;
+    const int rbase = w0 + R * t;  // this thread's first row
+    const int pr = rbase >> 3;     // its row block
+    const CodeT tword = (active && rbase < p.wt) ? trow[rbase / R] : 0;
     const uint32_t qword = 8 * g < p.qf ? qrow[g] : 0u;
-    if (active) hl[t] = H[7];
-    int tc[8];
+    if (active) hl[t] = H[R - 1];
+    // each row's code and its score against any other query code
+    int tc[R], mis[R];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) tc[i] = (tword >> (4 * i)) & 0xF;
+    for (int i = 0; i < R; ++i) {
+      tc[i] = (tword >> (4 * i)) & 0xF;
+      mis[i] = tc[i] == kNValue ? -kNPenalty : -p.mismatch;
+    }
 
     // slice / chunk algebra of this thread's row block for query word g
-    const int cs = max(0, rbase - bw) >> 3;
-    const int ce = min(pql - 1, (rbase + 7 + bw) >> 3);
+    const int cs = max(0, 8 * pr - bw) >> 3;
+    const int ce = min(pql - 1, (8 * pr + 7 + bw) >> 3);
     const int i_sl = ((pr + g) / sw) * sw;
     const int ss = max(max(0, i_sl - pql + 1), ctr16((i_sl << 3) + (8 - bw)));
     const int se = min(min(prl - 1, i_sl + (sw - 1)),
@@ -303,7 +400,7 @@ colband_kernel(const Params p, long long* split) {
     const bool xg = insl && g >= cs && g <= ce;
     const bool yg = insl && g > cs && g < ce;
     const bool cst = g == max(cs, i_sl - pr);
-    // diagonals below this are final: the chain lane may take them
+    // diagonals below this are final: the chain may take them
     const int frontier = min(w0 + 8 * g - 8, end_p);
     lap(5);
 
@@ -311,6 +408,10 @@ colband_kernel(const Params p, long long* split) {
       const int j = 8 * g + k;
       if (j >= qlen) break;
       const int qc = (qword >> (4 * k)) & 0xF;
+      // an N query code scores -1 against every row: it takes the match
+      // branch with sm = -1
+      const bool qn = qc == kNValue;
+      const int sm = qn ? -kNPenalty : p.match;
       const int top_h =
           j == 0 ? 0 : (j - 1 <= bw ? -(goe + ge * (j - 1)) : kMinusInf2);
       const int top_e = j <= bw ? -(goe + ge * j) - goe : kMinusInf2;
@@ -321,70 +422,61 @@ colband_kernel(const Params p, long long* split) {
 
       __syncthreads();  // A: hl holds every thread's last row
       lap(0);
-      int temp[8], v[8];
+      int temp[R], v[R];
       unsigned cmask = 0;
       int a = kNegBig;
       if (active) {
         int htl = t == 0 ? top_h : hl[t - 1];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < R; ++i) {
           const int r = rbase + i;
           if (reload && r >= rlen + 1) htl = kMinusInf2;
-          const int s = (qc == kNValue || tc[i] == kNValue)
-                            ? -kNPenalty
-                            : (qc == tc[i] ? p.match : -p.mismatch);
-          temp[i] = htl + s;
+          temp[i] = htl + (tc[i] == qc || qn ? sm : mis[i]);
           const bool comp =
               yg || (xg && static_cast<unsigned>(i - band_lo) <= band_span);
           cmask |= static_cast<unsigned>(comp) << i;
           v[i] = comp ? temp[i] - goe : top_e;
-          a = max(a, v[i] + ge * (8 * t + i));
+          a = __viaddmax_s32(v[i], wr[i], a);
           htl = H[i];
         }
       }
       lap(1);
-      int exc = warp_excl_max(a, wtot);
+      int exc = kNegBig;
+      if (!chain_warp) exc = warp_excl_max(a, wtot);
       lap(2);
-      exc = merge_warp_totals(exc, wtot);  // B
+      __syncthreads();  // B: wtot holds every row warp's total
+      if (!chain_warp) exc = max(exc, warps_before(wtot));
       lap(3);
       if (active) {
-        // the 8 rows hit 8 different diagonals: read them all first, so
+        // the R rows hit R different diagonals: read them all first, so
         // that no load waits for an earlier row's store
-        int* slot[8];
-        int old[8];
+        int slot[R], old[R];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          slot[i] = ring + ring_slot(rbase + i + j, p.rs);
-          old[i] = *slot[i];
+        for (int i = 0; i < R; ++i) {
+          slot[i] = ring_slot(rbase + i + j, p.rs);
+          old[i] = ring[slot[i]];
         }
         int run = max(top_e - ge, exc);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < R; ++i) {
           const int r = rbase + i;
-          const int w = ge * (8 * t + i);
-          const int e_in = run - (w - ge);
+          const int e_in = run - wr[i] + ge;
           int f_in = F[i];
           if (reload && r >= rlen) f_in = kMinusInf2;
-          const int h_new = max(max(temp[i], f_in), e_in);
+          const int h_new = __vimax3_s32(temp[i], f_in, e_in);
           if ((cmask >> i) & 1) {
-            F[i] = max(v[i], f_in - ge);
+            F[i] = __viaddmax_s32(f_in, -ge, v[i]);
             H[i] = h_new;
-            *slot[i] = max(old[i], pack_hr(h_new, r));
+            ring[slot[i]] = max(old[i], pack_hr(h_new, r));
           } else {
             F[i] = f_in;
           }
-          run = max(run, v[i] + w);
+          run = __viaddmax_s32(v[i], wr[i], run);
         }
-        hl[t] = H[7];
-      } else if (chain_lane) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          if (c.term || c.next >= frontier) break;
-          int* const slot = ring + ring_slot(c.next, p.rs);
-          const int x = *slot;
-          *slot = INT_MIN;
-          chain_step(c, x, i_end8, n_diags, p.z, ge);
-        }
+        hl[t] = H[R - 1];
+      } else if (chain_warp && !c.term && c.next < frontier) {
+        // one round a group: the diagonals that became final with it
+        chain_round(c, ring, p.rs, frontier, i_end8, n_diags, p.z, ge);
       }
       lap(4);
       if (kSplit) acc[6] += 1;
@@ -396,13 +488,11 @@ colband_kernel(const Params p, long long* split) {
     for (int i = 0; i < 7; ++i) o[i] = acc[i];
   }
   __syncthreads();  // every diagonal is final
+  if (chain_warp) {
+    while (!c.term && c.next < end_p)
+      chain_round(c, ring, p.rs, end_p, i_end8, n_diags, p.z, ge);
+  }
   if (chain_lane) {
-    while (!c.term && c.next < end_p) {
-      int* const slot = ring + ring_slot(c.next, p.rs);
-      const int x = *slot;
-      *slot = INT_MIN;
-      chain_step(c, x, i_end8, n_diags, p.z, ge);
-    }
     int32_t* const o = p.out + 4 * static_cast<size_t>(pair);
     o[0] = c.ms;
     o[1] = c.mq;
@@ -648,13 +738,15 @@ int ring_entries(int RW) {
   return rs;
 }
 
-// Fills the launch parameters of one bucket; false if the shapes are out
-// of the kernel's range.
+// Fills the launch parameters of one bucket at `rows` rows a thread;
+// false if the shapes are out of the kernel's range.
 bool colband_params(Params& p, const void* scal, const void* tcodes,
                     const void* qfwd, void* out, int gb, int wt, int qf,
                     int RW, int Qpad, int LEAD, int WMAX, int match,
-                    int mismatch, int goe, int ge, int sw, int z, int bw) {
-  if (RW < 8 || RW % 8 || RW > 4096 || wt % 8 || qf % 8 || sw < 1)
+                    int mismatch, int goe, int ge, int sw, int z, int bw,
+                    int rows) {
+  if (RW < 8 || RW % 8 || RW > 4096 || wt % 8 || qf % 8 || sw < 1 ||
+      (rows != 2 && rows != 4 && rows != 8))
     return false;
   p.scal = static_cast<const int32_t*>(scal);
   p.tcodes = static_cast<const uint8_t*>(tcodes);
@@ -667,7 +759,8 @@ bool colband_params(Params& p, const void* scal, const void* tcodes,
   p.Qpad = Qpad;
   p.LEAD = LEAD;
   p.WMAX = WMAX;
-  p.nb = RW / 8;
+  p.R = rows;
+  p.nb = RW / rows;
   p.nbpad = (p.nb + 31) & ~31;
   p.rs = ring_entries(RW);
   p.match = match;
@@ -677,59 +770,51 @@ bool colband_params(Params& p, const void* scal, const void* tcodes,
   p.sw = sw;
   p.z = z;
   p.bw = bw;
-  return true;
+  return p.nbpad + 32 <= colband_max_threads(rows);
 }
 
-template <bool kSplit>
-cudaError_t launch_colband(const Params& p, long long* split,
-                           cudaStream_t stream) {
+template <int R>
+cudaError_t launch_instance(const Params& p, long long* split,
+                            cudaStream_t stream) {
   const size_t smem = sizeof(int) * colband_smem_ints(p);
+  const auto kernel = split != nullptr ? colband_kernel<R, true>
+                                       : colband_kernel<R, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      colband_kernel<kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  colband_kernel<kSplit><<<p.gb, p.nbpad + 32, smem, stream>>>(p, split);
+  kernel<<<p.gb, p.nbpad + 32, smem, stream>>>(p, split);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the banded column sweep of one bucket on `stream`, one block
-// per pair; returns cudaGetLastError().
+// per pair, `rows` (2, 4 or 8) window rows a thread.  With `split`
+// non-null, the clock64 instance: split holds (GB, warps, 8) int64
+// (colband_kernel's kSplit), warps the launch's threads / 32.  Returns
+// cudaGetLastError().
 extern "C" int agatha_colband(const void* scal, const void* tcodes,
                               const void* qfwd, void* out, int gb, int wt,
                               int qf, int RW, int Qpad, int LEAD, int WMAX,
                               int match, int mismatch, int goe, int ge,
-                              int sw, int z, int bw, int device,
-                              void* stream) {
+                              int sw, int z, int bw, int rows, void* split,
+                              int device, void* stream) {
   Params p;
   if (!colband_params(p, scal, tcodes, qfwd, out, gb, wt, qf, RW, Qpad,
-                      LEAD, WMAX, match, mismatch, goe, ge, sw, z, bw))
+                      LEAD, WMAX, match, mismatch, goe, ge, sw, z, bw,
+                      rows))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_colband<false>(p, nullptr, static_cast<cudaStream_t>(stream)));
-}
-
-// The same launch with clock64 timing of the column's parts: `split`
-// holds (GB, warps, 8) int64 (colband_kernel's kSplit), warps the
-// launch's threads / 32.
-extern "C" int agatha_colband_split(const void* scal, const void* tcodes,
-                                    const void* qfwd, void* out, int gb,
-                                    int wt, int qf, int RW, int Qpad,
-                                    int LEAD, int WMAX, int match,
-                                    int mismatch, int goe, int ge, int sw,
-                                    int z, int bw, void* split, int device,
-                                    void* stream) {
-  Params p;
-  if (!colband_params(p, scal, tcodes, qfwd, out, gb, wt, qf, RW, Qpad,
-                      LEAD, WMAX, match, mismatch, goe, ge, sw, z, bw))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_colband<true>(
-      p, static_cast<long long*>(split), static_cast<cudaStream_t>(stream)));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto sp = static_cast<long long*>(split);
+  switch (rows) {
+    case 2: err = launch_instance<2>(p, sp, s); break;
+    case 4: err = launch_instance<4>(p, sp, s); break;
+    default: err = launch_instance<8>(p, sp, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 namespace {

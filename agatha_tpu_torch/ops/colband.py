@@ -52,8 +52,9 @@ Three implementations:
   (GB, RW) int32 tensors, the device kernel's arithmetic exactly (the
   plain-weight E, the three-phase window); the CPU path and the
   card-side reference.
-* `csrc/colband.cu`: hand-written for Hopper, one block per pair, built
-  with nvcc at first use and bound with ctypes.
+* `csrc/colband.cu`: hand-written for Hopper, one block per pair, R
+  window rows a thread (instances R = 2, 4, 8; `colband_rows` picks
+  one), built with nvcc at first use and bound with ctypes.
 
 `align_bucket_colband` dispatches on the tensors' device: CPU tensors
 run `colband_torch`, CUDA tensors launch the kernel on the current
@@ -578,9 +579,15 @@ def colband_torch(scalars, tcodes, qfwd, cfg: AlignConfig,
 _lib = None
 # nvcc's output of the build this process loaded (ptxas report).
 build_log = ""
-# Launches of the B7 kernel since import (or since a caller reset it);
-# only `colband_cuda` adds to it, once per launch.
+# Rows a thread of the B7 instances (csrc/colband.cu colband_kernel<R>).
+COLBAND_ROWS = (2, 4, 8)
+# Row threads a block of the instance `colband_rows` picks may have.
+COLBAND_ROW_THREADS = 384
+# Launches of the B7 kernel since import (or since a caller reset them);
+# only `colband_cuda` adds to them, once per launch: `launches` counts
+# every instance, `launches_rows[R]` the instance of R rows a thread.
 launches = 0
+launches_rows = dict.fromkeys(COLBAND_ROWS, 0)
 
 
 def build() -> ctypes.CDLL:
@@ -589,15 +596,55 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     (lib, build_log), = _nvcc.build("colband.cu")
+    _lib = bind(lib)
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries of a build of csrc/colband.cu on `lib`."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.agatha_colband.argtypes = [vp] * 4 + [ci] * 15 + [vp]
+    lib.agatha_colband.argtypes = [vp] * 4 + [ci] * 15 + [vp, ci, vp]
     lib.agatha_colband.restype = ci
     lib.agatha_colband_probe.argtypes = [vp] * 4 + [ci] * 7 + [vp]
     lib.agatha_colband_probe.restype = ci
-    lib.agatha_colband_split.argtypes = ([vp] * 4 + [ci] * 14 + [vp, ci, vp])
-    lib.agatha_colband_split.restype = ci
-    _lib = lib
     return lib
+
+
+def colband_rows(RW: int) -> int:
+    """Rows a thread R of the B7 instance a window of RW rows takes.
+
+    A block is RW / R row threads, rounded up to warps, and the chain
+    warp, within the instance's `max_threads`: R = 2 fits up to RW
+    1984, R = 4 up to 1536, R = 8 every window (the gate's 4096).  The
+    rule: the fewest rows a
+    thread that keep RW / R within 384 row threads (12 row warps), else
+    8.  On the H100 (probes/colband_bench.py, 1024 x 10 kb at bands 127,
+    255, 751, 1000 and 2001; PERF.md §6) the rule's instance was the
+    fastest at bands 255-2001 (R = 2 at RW 544, 9 warps; R = 4 at RW
+    1536, 12; R = 8 at RW 2032, 8) and 0.7% behind R = 4 at bw 127 (RW
+    288: R = 2 3.216 ms, R = 4 3.195); fewer warps hide less of a
+    column's latency, more pay more at its two barriers and scan than
+    they hide.  Only RW 1536 is a benchmark cell's window: the R = 2
+    and R = 8 sides of the rule rest on that probe workload alone.
+    """
+    for R in COLBAND_ROWS:
+        if -(-RW // R) <= COLBAND_ROW_THREADS:
+            return R
+    return COLBAND_ROWS[-1]
+
+
+def max_threads(rows: int) -> int:
+    """Threads a block of the B7 instance of `rows` rows a thread may
+    have: its launch bound, csrc/colband.cu's colband_max_threads (R = 4
+    bound by the largest block `colband_rows` gives it)."""
+    if rows == 4:
+        return COLBAND_ROW_THREADS + 32
+    return min(4096 // rows + 32, 1024)
+
+
+def block_threads(RW: int, rows: int) -> int:
+    """Threads of a B7 block at RW window rows, `rows` a thread."""
+    return -(-(RW // rows) // 32) * 32 + 32
 
 
 def _check_wire(scalars, tcodes, qfwd, gb):
@@ -639,12 +686,15 @@ def _check_shapes(shapes, cfg: AlignConfig):
                          f"schedule for band {cfg.band_width}")
 
 
-def colband_cuda(scalars, tcodes, qfwd, cfg: AlignConfig,
-                 shapes) -> torch.Tensor:
+def colband_cuda(scalars, tcodes, qfwd, cfg: AlignConfig, shapes, *,
+                 rows: int | None = None) -> torch.Tensor:
     """Launch the B7 kernel on the current stream; (GB, 4) int32.
 
     One block per pair; rows and columns past the wire read as code 0.
-    Does not synchronise.  Raises if the build or the launch fails.
+    `rows` picks the instance of that many window rows a thread (2, 4 or
+    8; `colband_rows(RW)` when None).  Does not synchronise.  Raises if
+    the instance cannot take the window, or the build or the launch
+    fails.
     """
     global launches
     gb = scalars.shape[1] if scalars.dim() == 2 else -1
@@ -653,11 +703,17 @@ def colband_cuda(scalars, tcodes, qfwd, cfg: AlignConfig,
     if scalars.device.type != "cuda":
         raise ValueError(f"colband_cuda needs CUDA tensors, got "
                          f"{scalars.device}")
+    RW, _R8pad, Qpad, _G, _gA, _gB, _tail, LEAD, WMAX = shapes
+    if rows is None:
+        rows = colband_rows(RW)
+    if rows not in COLBAND_ROWS or block_threads(RW, rows) > max_threads(
+            rows):
+        raise ValueError(f"no B7 instance of {rows} rows a thread takes "
+                         f"a window of {RW} rows")
     out = torch.empty((gb, 4), dtype=torch.int32, device=scalars.device)
     if gb == 0:
         return out
     lib = build()
-    RW, _R8pad, Qpad, _G, _gA, _gB, _tail, LEAD, WMAX = shapes
     dev = scalars.device.index
     if dev is None:
         dev = torch.cuda.current_device()
@@ -667,11 +723,12 @@ def colband_cuda(scalars, tcodes, qfwd, cfg: AlignConfig,
         RW, Qpad, LEAD, WMAX,
         cfg.match, cfg.mismatch, cfg.gap_oe, cfg.gap_extend,
         cfg.slice_width, cfg.z_threshold, cfg.band_width,
-        dev, torch.cuda.current_stream(dev).cuda_stream,
+        rows, None, dev, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"colband kernel launch failed: CUDA error {err}")
     launches += 1
+    launches_rows[rows] += 1
     return out
 
 

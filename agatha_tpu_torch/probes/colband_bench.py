@@ -18,19 +18,28 @@ column is the time one column of a 128-pair group takes.
     python -m agatha_tpu_torch.probes.colband_bench [n_pairs mean_len band]
 
 stages the fewest-column bucket of `make_workload(n_pairs, mean_len,
-seed=1234)` as the engine with colband on would build it, and prints ns
-per column, ms per launch, the card's name and power limit, and the
-kernel's clock64 split of a column (`column_split`).
+seed=1234)` as the engine with colband on would build it, and prints the
+card's name and power limit, then for each B7 instance that takes the
+bucket's window (R rows a thread) ns per column, ms per launch and the
+kernel's clock64 split of a column (`column_split`); then the engine's
+instance built as it is and with the other launch bound (1024 threads,
+or 416, the largest block `colband_rows` gives R = 2 or 4), timed in
+turns, with both builds' ptxas registers and spills (`bound_ab`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import re
+import subprocess
 import sys
 
 import numpy as np
 import torch
 
 from agatha_tpu_torch.config import AlignConfig
+from agatha_tpu_torch.ops import _nvcc
 from agatha_tpu_torch.ops import colband as cb
 from agatha_tpu_torch.probes.antidiag_cells import cuda_ms
 
@@ -48,10 +57,12 @@ def stage_bucket(meta, tcodes, qfwd, cfg: AlignConfig, device="cuda"):
               for a in (scalars, tcodes, qfwd)), shapes)
 
 
-def make_call(cfg: AlignConfig, shapes):
-    """The production kernel launch at `shapes`."""
+def make_call(cfg: AlignConfig, shapes, rows=None):
+    """The production kernel launch at `shapes`, of the instance of
+    `rows` rows a thread (the engine's when None)."""
     def call(scalars, tcodes, qfwd):
-        return cb.colband_cuda(scalars, tcodes, qfwd, cfg, shapes)
+        return cb.colband_cuda(scalars, tcodes, qfwd, cfg, shapes,
+                               rows=rows)
     return call
 
 
@@ -92,54 +103,145 @@ def slope_ns_per_col(go, scalars, tcodes, qfwd, reps, cols, rounds=4):
     return per_launch * 1e6 / cols, per_launch
 
 
-def bench_bucket(meta, tcodes, qfwd, cfg, reps=8, rounds=4):
-    """ns per column and ms per launch of one host bucket on the card."""
+def bench_bucket(meta, tcodes, qfwd, cfg, reps=8, rounds=4, rows=None):
+    """ns per column and ms per launch of one host bucket on the card
+    (of the instance `rows`, as `make_call`)."""
     scalars, tc, qf, shapes = stage_bucket(meta, tcodes, qfwd, cfg)
-    go = rep_chain(make_call(cfg, shapes))
+    go = rep_chain(make_call(cfg, shapes, rows))
     cols = swept_columns(scalars, shapes)
     ns_col, ms = slope_ns_per_col(go, scalars, tc, qf, reps, cols, rounds)
     return {"ns_per_col": ns_col, "ms": ms, "cols": cols, "shapes": shapes}
 
 
-# The parts of a column that the kernel's split instance times
-# (csrc/colband.cu, colband_kernel<kSplit>), in its slot order.  The
-# chain lane's warp passes the same barriers; its "pass 2 + ring" is its
-# chain steps.
+# The parts of a column that the kernel's split instances time
+# (csrc/colband.cu, colband_kernel<R, kSplit>), in their slot order.
+# The chain warp passes the same barriers; its "pass 2 + ring" is its
+# chain rounds.
 SPLIT_PARTS = ("barrier A", "pass 1", "warp scan",
                "barrier B + warp totals", "pass 2 + ring", "group steps")
 
 
-def column_split(meta, tcodes, qfwd, cfg: AlignConfig) -> dict:
-    """clock64 cycles per column of each part, from the kernel's split
-    instance on one bucket: for the block of the bucket's longest query,
-    lane 0 of each row warp and of the chain lane's warp.  Also the
-    split instance's ms against the production launch's (what the
-    timing costs)."""
-    scalars, tc, qf, shapes = stage_bucket(meta, tcodes, qfwd, cfg)
-    lib = cb.build()
-    gb = scalars.shape[1]
+def instances(RW: int) -> list[int]:
+    """Rows a thread of every B7 instance that takes a window of RW
+    rows."""
+    return [r for r in cb.COLBAND_ROWS
+            if cb.block_threads(RW, r) <= cb.max_threads(r)]
+
+
+def raw_launch(lib, args, out, cfg: AlignConfig, shapes, rows: int,
+               split=None) -> None:
+    """`agatha_colband` of `lib` (a build of csrc/colband.cu) on the
+    staged (scalars, tcodes, qfwd) into `out`, uncounted; raises on a
+    CUDA error."""
+    scalars, tc, qf = args
     RW, _r8, Qpad, _g, _ga, _gb, _t, LEAD, WMAX = shapes
-    warps = ((RW // 8 + 31) // 32) + 1
+    err = lib.agatha_colband(
+        scalars.data_ptr(), tc.data_ptr(), qf.data_ptr(), out.data_ptr(),
+        scalars.shape[1], 2 * tc.shape[1], 2 * qf.shape[1], RW, Qpad, LEAD,
+        WMAX, cfg.match, cfg.mismatch, cfg.gap_oe, cfg.gap_extend,
+        cfg.slice_width, cfg.z_threshold, cfg.band_width, rows, split,
+        torch.cuda.current_device(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"colband launch failed: CUDA error {err}")
+
+
+LAUNCH_BOUND = "__launch_bounds__(colband_max_threads(R))"
+
+
+def bounded_build(max_threads: int):
+    """csrc/colband.cu with colband_kernel's launch bound set to
+    `max_threads` in place of `colband_max_threads(R)` (1024 for R = 2,
+    which caps a thread at 64 registers; 416 for R = 4), built for
+    sm_90a into _build/; returns (library, nvcc's ptxas report)."""
+    with open(os.path.join(_nvcc.CSRC, "colband.cu")) as f:
+        src = f.read()
+    if src.count(LAUNCH_BOUND) != 1:
+        raise RuntimeError(f"csrc/colband.cu has no single {LAUNCH_BOUND}")
+    os.makedirs(_nvcc.BUILD_DIR, exist_ok=True)
+    stem = os.path.join(_nvcc.BUILD_DIR, f"colband_bound{max_threads}")
+    with open(stem + ".cu", "w") as f:
+        f.write(src.replace(LAUNCH_BOUND,
+                            f"__launch_bounds__({max_threads})"))
+    p = subprocess.run([_nvcc._nvcc(), *_nvcc.FLAGS, "-o", stem + ".so",
+                        stem + ".cu"], capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {stem}.cu:\n{p.stderr}")
+    return cb.bind(ctypes.CDLL(stem + ".so")), p.stderr
+
+
+def kernel_registers(log: str) -> dict:
+    """{colband_kernel instance: its ptxas registers and spill line} from
+    a build's report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"colband_kernelILi(\d)ELb(\d)", line)
+        if "Compiling entry" in line or "Function properties" in line:
+            name = (f"R={m.group(1)}{' split' if m.group(2) == '1' else ''}"
+                    if m else None)
+        elif name and ("spill" in line or "registers" in line):
+            out[name] = (out.get(name, "") + " " + line.split(":")[-1]
+                         .strip()).strip()
+    return out
+
+
+def bound_ab(meta, tcodes, qfwd, cfg: AlignConfig, max_threads: int,
+             rounds: int = 2) -> dict:
+    """The engine's instance on one bucket as built (its bound
+    `colband_max_threads(R)`) and built with `max_threads`
+    (`bounded_build`; at least the block the engine launches), in turns
+    a, b, b, a `rounds` times: the outputs equal, CUDA-event ms of each
+    (best), and both builds' registers and spills (none for a build
+    this process found in _build/)."""
+    scalars, tc, qf, shapes = stage_bucket(meta, tcodes, qfwd, cfg)
+    rows = cb.colband_rows(shapes[0])
+    if cb.block_threads(shapes[0], rows) > max_threads:
+        raise ValueError(f"R={rows} launches more than {max_threads} "
+                         "threads at this window")
+    alt, log = bounded_build(max_threads)
+    libs = {"as built": cb.build(), f"bound {max_threads}": alt}
+    outs = {k: torch.empty((scalars.shape[1], 4), dtype=torch.int32,
+                           device="cuda") for k in libs}
+    best = dict.fromkeys(libs, float("inf"))
+    order = list(libs)
+    for _ in range(rounds):
+        for k in order + order[::-1]:
+            best[k] = min(best[k], cuda_ms(lambda: raw_launch(
+                libs[k], (scalars, tc, qf), outs[k], cfg, shapes, rows),
+                reps=10))
+    if not torch.equal(*outs.values()):
+        raise AssertionError("the two builds' outputs differ")
+    return {"rows": rows, "ms": best,
+            "registers": {"as built": kernel_registers(cb.build_log),
+                          f"bound {max_threads}": kernel_registers(log)}}
+
+
+def column_split(meta, tcodes, qfwd, cfg: AlignConfig, rows=None) -> dict:
+    """clock64 cycles per column of each part, from the split instance of
+    `rows` rows a thread (`colband_rows(RW)` when None) on one bucket:
+    for the block of the bucket's longest query, lane 0 of each row warp
+    and of the chain warp.  Also the split instance's ms against the
+    production launch's (what the timing costs)."""
+    scalars, tc, qf, shapes = stage_bucket(meta, tcodes, qfwd, cfg)
+    gb = scalars.shape[1]
+    RW = shapes[0]
+    if rows is None:
+        rows = cb.colband_rows(RW)
+    warps = cb.block_threads(RW, rows) // 32
     split = torch.zeros((gb, warps, 8), dtype=torch.int64, device="cuda")
     out = torch.empty((gb, 4), dtype=torch.int32, device="cuda")
-    dev = torch.cuda.current_device()
 
     def run():
-        err = lib.agatha_colband_split(
-            scalars.data_ptr(), tc.data_ptr(), qf.data_ptr(),
-            out.data_ptr(), gb, 2 * tc.shape[1], 2 * qf.shape[1], RW, Qpad,
-            LEAD, WMAX, cfg.match, cfg.mismatch, cfg.gap_oe,
-            cfg.gap_extend, cfg.slice_width, cfg.z_threshold,
-            cfg.band_width, split.data_ptr(), dev,
-            torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"split launch failed: CUDA error {err}")
+        raw_launch(cb.build(), (scalars, tc, qf), out, cfg, shapes, rows,
+                   split.data_ptr())
+
+    def prod():
+        return cb.colband_cuda(scalars, tc, qf, cfg, shapes, rows=rows)
 
     split_ms = cuda_ms(run, reps=3)
-    if not torch.equal(out, cb.colband_cuda(scalars, tc, qf, cfg, shapes)):
+    if not torch.equal(out, prod()):
         raise AssertionError("the split instance's output differs")
-    ms = cuda_ms(lambda: cb.colband_cuda(scalars, tc, qf, cfg, shapes),
-                 reps=3)
+    ms = cuda_ms(prod, reps=3)
     blk = int(torch.argmax(scalars[0]))
     s = split[blk].cpu().numpy()
     cols = max(int(s[0, 6]), 1)
@@ -147,17 +249,24 @@ def column_split(meta, tcodes, qfwd, cfg: AlignConfig) -> dict:
                          for w in range(warps - 1)],
            "chain warp": (s[warps - 1, :6] / cols).tolist()}
     return {"parts": SPLIT_PARTS, "columns": cols, "block": blk,
+            "rows": rows,
             "cycles_per_column": per, "split_ms": split_ms, "ms": ms}
 
 
 def print_split(r: dict) -> None:
-    print(f"clock64 split of one column (block {r['block']}, "
-          f"{r['columns']} columns; split instance {r['split_ms']:.3f} ms, "
-          f"production {r['ms']:.3f} ms), cycles per column:")
-    rows = list(enumerate(r["cycles_per_column"]["row warps"]))
-    rows.append(("chain", r["cycles_per_column"]["chain warp"]))
-    for w, parts in rows:
-        print(f"  warp {w}: " + ", ".join(
+    rows = r["cycles_per_column"]["row warps"]
+    chain = r["cycles_per_column"]["chain warp"]
+    print(f"clock64 split of one column, R={r['rows']} (block "
+          f"{r['block']}, {r['columns']} columns; split instance "
+          f"{r['split_ms']:.3f} ms, production {r['ms']:.3f} ms), cycles "
+          f"per column:")
+    sums = [sum(p) for p in rows]
+    # the row warps' mean and their slowest, then the chain warp
+    mean = [sum(p[i] for p in rows) / len(rows) for i in range(6)]
+    slow = rows[max(range(len(rows)), key=lambda w: sums[w])]
+    for label, parts in (("row warps, mean", mean),
+                         ("slowest row warp", slow), ("chain warp", chain)):
+        print(f"  {label}: " + ", ".join(
             f"{n} {c:.1f}" for n, c in zip(r["parts"], parts))
             + f"; sum {sum(parts):.1f}")
 
@@ -178,12 +287,27 @@ def main(argv: list[str] | None = None) -> int:
     encoded = make_workload(n_pairs, mean_len, seed=1234)
     b = min(engine.iter_buckets(encoded),
             key=lambda b: int(b.meta[:, 0].sum()))
-    r = bench_bucket(b.meta, b.tcodes, b.qfwd, cfg)
     print(f"# device={device_line()}")
-    print(f"colband kernel: GB={b.meta.shape[0]} shapes={r['shapes']} "
-          f"columns {r['cols']}: {r['ms']:.4f} ms per launch, "
-          f"{r['ns_per_col']:.3f} ns per column")
-    print_split(column_split(b.meta, b.tcodes, b.qfwd, cfg))
+    RW = cb.colband_shapes(b.meta, cfg)[0]
+    for rows in instances(RW):
+        r = bench_bucket(b.meta, b.tcodes, b.qfwd, cfg, rows=rows)
+        taken = " (the engine takes it)" if rows == cb.colband_rows(RW) else ""
+        print(f"colband kernel, R={rows}{taken}: "
+              f"GB={b.meta.shape[0]} shapes={r['shapes']} columns "
+              f"{r['cols']}: {r['ms']:.4f} ms per launch, "
+              f"{r['ns_per_col']:.3f} ns per column")
+        print_split(column_split(b.meta, b.tcodes, b.qfwd, cfg, rows))
+    # the engine's instance against the other launch bound: 1024, or the
+    # largest block `colband_rows` gives R = 2 or 4
+    rows = cb.colband_rows(RW)
+    tight = cb.COLBAND_ROW_THREADS + 32
+    ab = bound_ab(b.meta, b.tcodes, b.qfwd, cfg,
+                  1024 if cb.max_threads(rows) == tight else tight)
+    print(f"launch bound, R={ab['rows']} (best of turns, ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ab["ms"].items()))
+    for k, regs in ab["registers"].items():
+        print(f"  ptxas {k}: " + "; ".join(
+            f"{n}: {v}" for n, v in sorted(regs.items())))
     return 0
 
 

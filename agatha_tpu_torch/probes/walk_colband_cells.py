@@ -1,19 +1,22 @@
 """Times the walk (B6) and the banded column sweep (B7) in the cells that
 carry them, end to end and per bucket, on one CUDA device.
 
-    python -m agatha_tpu_torch.probes.walk_colband_cells
+    python -m agatha_tpu_torch.probes.walk_colband_cells [--colband]
 
-prints, one line each, with the card's name and power limit first:
+prints, one line each, with the card's name and power limit first
+(`--colband`: the colband cells alone):
 - the headline with CIGARs (1024 x 10 kb, bw 751, `traceback=True`):
   wall, the score wall measured before and after it, tb/score, B6's
   CUDA-event ms on each bucket and their sum, and on the fewest-diagonal
   bucket (1536 planes) B6's ms and ns per plane of the longest path;
 - the headline and HiFi (1024 x 15 kb) with `EngineConfig(colband=True)`:
   walls (one warm-up, best of 3, taken in turns with the default route),
-  B7's CUDA-event ms per bucket and their sum; on the fewest-column
-  bucket B7's ms, P1's ns per column (`colband_bench`'s slope) and B2's
-  ms on the same bucket;
-- where the package has it, B7's clock64 split of a column;
+  B7's CUDA-event ms per bucket in the engine and their sum, then for
+  each B7 instance the package has (R rows a thread) its ms per bucket
+  on staged inputs and their sum; on the headline's
+  fewest-column bucket B2's ms, and for each instance B7's ms, P1's ns
+  per column (`colband_bench`'s slope) and, where the package has it,
+  B7's clock64 split of a column;
 then one JSON line of every number.
 
 It uses only the entry points every revision of the port has
@@ -108,6 +111,19 @@ def traceback_cell() -> dict:
     return r
 
 
+def b7_instances(RW: int) -> list[dict]:
+    """colband_cuda's keyword arguments for every B7 instance of the
+    package that takes a window of RW rows: [{}] for a package of one
+    instance (before the instances of rows a thread)."""
+    if not hasattr(colband_bench, "instances"):
+        return [{}]
+    return [dict(rows=r) for r in colband_bench.instances(RW)]
+
+
+def inst_name(kw: dict) -> str:
+    return f"B7 R={kw['rows']}" if kw else "B7"
+
+
 def colband_cell(name: str, n: int, mean_len: int) -> dict:
     encoded = make_workload(n, mean_len, seed=1234)
     on = AlignEngine(CANON, EngineConfig(colband=True), device="cuda")
@@ -120,31 +136,46 @@ def colband_cell(name: str, n: int, mean_len: int) -> dict:
           f"turns {wall_off:.3f} ms); B7 per bucket "
           + " ".join(f"{m:.3f}" for m in timed.bucket_ms)
           + f" (sum {r['b7_sum_ms']:.3f} ms)", flush=True)
+    buckets = list(on.iter_buckets(encoded))
+    staged = [(colband_bench.stage_bucket(b.meta, b.tcodes, b.qfwd, CANON))
+              for b in buckets]
+    RW = staged[0][3][0]
+    r["instances"] = {}
+    for kw in b7_instances(RW):
+        ms = [cuda_ms(lambda: cb.colband_cuda(*st[:3], CANON, st[3], **kw),
+                      reps=3) for st in staged]
+        r["instances"][inst_name(kw)] = {"bucket_ms": ms, "sum_ms": sum(ms)}
+        print(f"  {inst_name(kw)} per bucket (events, staged inputs) "
+              + " ".join(f"{m:.3f}" for m in ms)
+              + f" (sum {sum(ms):.3f} ms)", flush=True)
     if name != "headline":
         return r
-    b = min(on.iter_buckets(encoded), key=lambda b: int(b.meta[:, 0].max()))
-    scalars = torch.from_numpy(cb.chain_scalars(b.meta, CANON)).cuda()
-    tc, qf = (torch.from_numpy(a).cuda() for a in (b.tcodes, b.qfwd))
-    shapes = cb.colband_shapes(b.meta, CANON)
-    ms = cuda_ms(lambda: cb.colband_cuda(scalars, tc, qf, CANON, shapes),
-                 reps=10)
-    slope = colband_bench.bench_bucket(b.meta, b.tcodes, b.qfwd, CANON,
-                                       reps=8, rounds=3)
+    b = min(buckets, key=lambda b: int(b.meta[:, 0].max()))
+    scalars, tc, qf, shapes = colband_bench.stage_bucket(b.meta, b.tcodes,
+                                                         b.qfwd, CANON)
     args = tuple(torch.from_numpy(a).cuda() for a in (b.meta, b.tcodes,
                                                        b.qfwd))
     b2 = cuda_ms(lambda: kernel.align_bucket(*args, CANON), reps=5)
-    r.update(b7_ms=ms, b7_ns_per_col=slope["ns_per_col"],
-             p1_ms=slope["ms"], columns=slope["cols"], b2_ms=b2,
-             gb=int(b.meta.shape[0]))
+    r.update(b2_ms=b2, gb=int(b.meta.shape[0]), fewest={})
     print(f"  fewest-column bucket GB={r['gb']} longest query "
-          f"{int(b.meta[:, 0].max())}: B7 {ms:.4f} ms, P1 slope "
-          f"{slope['ms']:.4f} ms per launch, {slope['ns_per_col']:.3f} ns "
-          f"per column ({slope['cols']} columns); B2 on the same bucket "
-          f"{b2:.4f} ms", flush=True)
-    if hasattr(colband_bench, "column_split"):
-        r["split"] = colband_bench.column_split(b.meta, b.tcodes, b.qfwd,
-                                                CANON)
-        colband_bench.print_split(r["split"])
+          f"{int(b.meta[:, 0].max())}: B2 on it {b2:.4f} ms", flush=True)
+    for kw in b7_instances(RW):
+        ms = cuda_ms(lambda: cb.colband_cuda(scalars, tc, qf, CANON, shapes,
+                                             **kw), reps=10)
+        slope = colband_bench.bench_bucket(b.meta, b.tcodes, b.qfwd, CANON,
+                                           reps=8, rounds=3, **kw)
+        f = {"b7_ms": ms, "b7_ns_per_col": slope["ns_per_col"],
+             "p1_ms": slope["ms"], "columns": slope["cols"],
+             "b2_over_b7": b2 / ms}
+        print(f"  {inst_name(kw)}: {ms:.4f} ms (B2 / B7 {b2 / ms:.4f}), P1 "
+              f"slope {slope['ms']:.4f} ms per launch, "
+              f"{slope['ns_per_col']:.3f} ns per column ({slope['cols']} "
+              "columns)", flush=True)
+        if hasattr(colband_bench, "column_split"):
+            f["split"] = colband_bench.column_split(b.meta, b.tcodes,
+                                                    b.qfwd, CANON, **kw)
+            colband_bench.print_split(f["split"])
+        r["fewest"][inst_name(kw)] = f
     return r
 
 
@@ -162,7 +193,8 @@ def main(argv: list[str]) -> int:
                 or "Compiling entry" in line]
         print("\n".join(f"ptxas {name}: {x}" for x in regs), flush=True)
         out[f"ptxas_{name}"] = regs
-    out["headline_tb"] = traceback_cell()
+    if "--colband" not in argv:
+        out["headline_tb"] = traceback_cell()
     out["headline_colband"] = colband_cell("headline", 1024, 10000)
     out["hifi_colband"] = colband_cell("hifi", 1024, 15000)
     print(json.dumps(out))

@@ -16,7 +16,8 @@ exit):
    on small full-width, strip-path, windowed, asymmetric, all-N and
    padding buckets;
 3. the kernel against the NumPy oracle `align_one_sweep`, exactly;
-3b. the kernel against its plain version (on the CPU, same inputs) on
+3b. the kernel against its plain version (on the CPU, same inputs, in a
+   pool of host processes while the next kernels launch) on
    200 seeded random buckets (slice widths 1-4, bw 36-751, z < 0, full
    width and windowed, safe16 and forced strips, all-N and 1-code
    pairs), every fifth also with flags, whose words the walk (B6) gives
@@ -65,24 +66,35 @@ exit):
    peak allocated memory; then B3 and B6 on the fewest-diagonal bucket
    (1536 planes) against their plain versions;
 10. 8192 x 150 bp with CIGARs (B3 full width), the same checks;
-11. the banded column-sweep kernel (B7) against its plain version
-    `colband_torch` on the card, exactly, then against the oracle and
-    the antidiagonal kernel (all four columns): bw 63 with 24 mixed
-    pairs, bw 31 with z 20 and shapes that reach the empty-slice cap,
-    bw 751 with 400-3000 bp pairs (the window rolls), all-N and 1x1
-    padding rows, GB = 37, a second scoring config (-m2 -x3, sw 5);
-11b. B7 against `colband_torch` (on the CPU, same inputs) and the oracle
-    on 100 seeded random buckets: bw 31-751 (one to six row warps,
-    rolling windows), Z-drop exits inside a group, N runs, empty slices,
-    GB not a multiple of 8;
-12. the headline through the engine with `EngineConfig(colband=True)`:
-    every bucket routed "colband", one B7 launch each, all four fields
-    of all 1024 pairs equal to the colband=False run; wall ms and GCUPS
-    of both routes taken in turns (best of 3 each), per-bucket
-    CUDA-event ms, a host-clock split of one align(); then the
-    fewest-column bucket: B7 against `colband_torch` with both times,
-    B2 on the same bucket, the slope of `probes.colband_bench` (P1) in
-    ns per column, and B7's clock64 split of a column;
+11. the banded column-sweep kernel (B7), every instance (R = 2, 4, 8
+    rows a thread, where the window fits a block),
+    against one plain result `colband_torch` on the card, exactly, then
+    the engine's instance against the oracle and the antidiagonal kernel
+    (all four columns): bw 63 with 24 mixed pairs, bw 31 with z 20 and
+    shapes that reach the empty-slice cap, bw 751 with 400-3000 bp pairs
+    (the window rolls), all-N and 1x1 padding rows, GB = 37, a second
+    scoring config (-m2 -x3, sw 5);
+11b. every B7 instance against one `colband_torch` result (on the CPU,
+    same inputs, in the pool of 3b) and the oracle on 100 seeded random
+    buckets: bw 31-751
+    (one to 24 row warps, rolling windows), Z-drop exits inside a group,
+    N runs, empty slices, GB not a multiple of 8;
+12. the headline through the engine with `EngineConfig(colband=True)`,
+    the launch counts set to 0 just before the align and read just
+    after: every bucket routed "colband", one B7 launch each, all of the
+    engine's instance (`ops.colband.colband_rows`: R = 4 at RW 1536),
+    all four fields of all 1024 pairs equal to the colband=False run;
+    wall ms and GCUPS of both routes taken in turns (best of 3 each),
+    per-bucket CUDA-event ms, a host-clock split of one align(); then
+    the fewest-column bucket: every instance against one `colband_torch`
+    result, B2 on the same bucket with its time, and for each instance
+    its time, B2 / B7, the slope of `probes.colband_bench` (P1) in ns
+    per column and its clock64 split of a column;
+12b. the same set and checks at bw 255 (RW 544) and bw 1000 (RW 2032),
+    where the engine takes the R = 2 and the R = 8 instance: each
+    align's launches counted alone, all four fields equal to the
+    colband=False run, and its fewest-column bucket's instances against
+    `colband_torch`, the engine's instance against B2, both timed;
 13. the cost probe (P2): each variant's CUDA instance against
     `colband_probe_torch` exactly (outputs and the final H, F and ring)
     at RW 384 with 128 pairs and 256 columns, then the seven timed
@@ -103,8 +115,9 @@ exit):
     substep beside B2's ns per diagonal from phase 4, then all four at
     128 blocks and full width over 150 packed diagonals against their
     plain versions, with both times;
-16. the two longest pairs of the ONT workload (bw 2001, rlen past 65535)
-    against the plain version;
+16. the longest pair of the ONT workload (bw 2001, rlen past 65535)
+    against the plain version, which a host process started before
+    phase 0 runs on the CPU beside phases 0-15;
 17. the command line (`agatha_tpu_torch.cli`) as a user runs it: each
     call a subprocess started in a temporary directory with the repo on
     PYTHONPATH.  The golden score.log / score2.log byte for byte (the
@@ -162,7 +175,11 @@ pair-wave substep, on the inputs timed.
 
 The last three lines are the card's `nvidia-smi` line, one JSON object
 describing each kernel of the path (``launches_multi``: its launches in
-phase 19's counted runs), and {"ok": true, "device": ...}.
+phase 19's counted runs; "colband" is B7 as the engine launches it, and
+"colband_r<R>" each instance on the colband path at whose band the
+engine takes it, phase 12's or 12b's, with that align's launches, its
+band, and its times and bound on that run's fewest-column bucket), and
+{"ok": true, "device": ...}.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -170,6 +187,7 @@ from __future__ import annotations
 
 import io
 import json
+import multiprocessing
 import os
 import pickle
 import re
@@ -458,16 +476,64 @@ RANDOM_CFGS = [
 ]
 
 
-def phase_random_buckets(n: int = 200) -> int:
+def plain_pool():
+    """Host processes, one thread each, for the plain versions that the
+    random-bucket phases 3b and 11b compare the kernels with: each
+    bucket's plain version runs there while this process launches the
+    next buckets' kernels.  Two cores stay with this process and one
+    with phase 16's plain version (`ont_pool`)."""
+    workers = max(1, min(5, (os.cpu_count() or 3) - 3))
+    return multiprocessing.get_context("spawn").Pool(
+        workers, initializer=torch.set_num_threads, initargs=(1,))
+
+
+def ont_pool():
+    """One host process, one thread, for phase 16's plain version."""
+    return multiprocessing.get_context("spawn").Pool(
+        1, initializer=torch.set_num_threads, initargs=(1,))
+
+
+def check_random_bucket(seed, bucket, cfg, strips, got, flagged):
+    """Phase 3b's host half for one bucket (on a pool process): the plain
+    version on the CPU against the kernel's (GB, 4) `got`, and with
+    `flagged` = (planes, out, flags, b6) the flag kernel's results,
+    swept planes (computed cells) and walked words against it, and B6's
+    words against walk_torch.  Returns max |err|; raises on a mismatch."""
+    host = tuple(torch.from_numpy(a) for a in bucket)
+    got = torch.from_numpy(got)
+    ref = align_bucket_torch(*host, cfg, force_strips=strips)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"random bucket {seed}: kernel != plain")
+    if flagged is not None:
+        planes, out, flags, b6 = flagged
+        out, flags, b6 = (torch.from_numpy(a) for a in (out, flags, b6))
+        _r, ref_flags, mask = align_bucket_torch(
+            *host, cfg, force_strips=strips, emit_flags=True,
+            planes=planes, return_mask=True)
+        vbases = torch.from_numpy(walk.vbase_schedule(
+            planes, cfg, 2 * bucket[1].shape[1]))
+        words = walk.walk_torch(flags, vbases, out)
+        if not (torch.equal(out, ref) and swept_planes_equal(
+                flags, ref_flags, out, planes, mask)
+                and torch.equal(words,
+                                walk.walk_torch(ref_flags, vbases, ref))):
+            raise AssertionError(f"random bucket {seed}: flags != plain")
+        if not torch.equal(b6, words):
+            raise AssertionError(f"random bucket {seed}: B6 != walk_torch")
+    return int((got - ref).abs().max())
+
+
+def phase_random_buckets(pool, n: int = 200) -> int:
     """n seeded buckets of 1-8 pairs (a quarter of the small-band ones
     windowed, every third on the strip path, every seventh with an all-N
     and a 1-code pair): the kernel == the plain version in all four
     columns; every fifth also with flags (results, computed cells of the
     swept planes, words walked by walk_torch, and by B6 on the kernel's
-    bitmap).  The plain versions run on the CPU on the same inputs: for
-    buckets this small that is faster than their launches on the card."""
-    err = 0
+    bitmap).  The plain versions run on the CPU on the same inputs, in
+    `pool`'s processes (`check_random_bucket`): for buckets this small
+    that is faster than their launches on the card."""
     kinds = {"windowed": 0, "strips": 0, "flags": 0}
+    checks = []
     for seed in range(n):
         rng = np.random.default_rng(7000 + seed)
         cfg = RANDOM_CFGS[seed % len(RANDOM_CFGS)]
@@ -480,53 +546,76 @@ def phase_random_buckets(n: int = 200) -> int:
         strips = seed % 3 == 1
         bucket = build_bucket_arrays(pairs, cfg)
         args = to_cuda(*bucket)
-        host = tuple(torch.from_numpy(a) for a in bucket)
-        got = align_bucket(*args, cfg, force_strips=strips).cpu()
-        ref = align_bucket_torch(*host, cfg, force_strips=strips)
-        err = max(err, int((got - ref).abs().max()))
-        if not torch.equal(got, ref):
-            raise AssertionError(f"random bucket {seed}: kernel != plain")
+        got = align_bucket(*args, cfg, force_strips=strips).cpu().numpy()
         kinds["windowed"] += 2 * bucket[1].shape[1] > window_width(cfg)
         kinds["strips"] += strips
+        flagged = None
         if seed % 5 == 0:
             kinds["flags"] += 1
             planes = kernel.flag_planes_needed(bucket[0], cfg)
             out, flags = align_bucket(*args, cfg, force_strips=strips,
                                       emit_flags=True, planes=planes)
-            _r, ref_flags, mask = align_bucket_torch(
-                *host, cfg, force_strips=strips, emit_flags=True,
-                planes=planes, return_mask=True)
             vbases = torch.from_numpy(walk.vbase_schedule(
                 planes, cfg, 2 * bucket[1].shape[1]))
-            b6 = walk.walk(flags, vbases.cuda(), out).cpu()
-            out, flags = out.cpu(), flags.cpu()
-            words = walk.walk_torch(flags, vbases, out)
-            if not (torch.equal(out, ref) and swept_planes_equal(
-                    flags, ref_flags, out, planes, mask)
-                    and torch.equal(words,
-                                    walk.walk_torch(ref_flags, vbases, ref))):
-                raise AssertionError(f"random bucket {seed}: flags != plain")
-            if not torch.equal(b6, words):
-                raise AssertionError(f"random bucket {seed}: B6 != "
-                                     "walk_torch")
+            b6 = walk.walk(flags, vbases.cuda(), out)
+            flagged = (planes, out.cpu().numpy(), flags.cpu().numpy(),
+                       b6.cpu().numpy())
+        checks.append(pool.apply_async(
+            check_random_bucket, (seed, bucket, cfg, strips, got, flagged)))
+    err = max(c.get() for c in checks)
     print(f"  {n} random buckets ({kinds['windowed']} windowed, "
           f"{kinds['strips']} on forced strips, {kinds['flags']} also with "
           "flags, walked by B6 too): kernel == plain version")
     return err
 
 
-def phase_ont_pairs() -> int:
-    """The two longest pairs of the ONT workload (bench 128 75000 2001),
-    rlen past 65535, against the plain version."""
+def ont_longest() -> tuple:
+    """(index, pair) of the longest pair (the most diagonals) of the ONT
+    workload (bench 128 75000 2001); its rlen is past 65535."""
     encoded = make_workload(128, 75000, seed=1234)
-    longest = sorted(range(len(encoded)), key=lambda i: encoded[i][3])[-2:]
-    pairs = [encoded[i] for i in longest]
-    if min(p[3] for p in pairs) <= 65535:
-        raise AssertionError("the ONT pairs do not pass 65535 rows")
-    print(f"  pairs {longest}: (qlen, rlen) "
-          f"{[(p[2], p[3]) for p in pairs]}")
-    return compare("ONT two longest pairs", build_bucket_arrays(pairs, ONT),
-                   ONT)
+    i = max(range(len(encoded)), key=lambda i: encoded[i][2] + encoded[i][3])
+    if encoded[i][3] <= 65535:
+        raise AssertionError("the longest ONT pair does not pass 65535 rows")
+    return i, encoded[i]
+
+
+def ont_plain() -> tuple:
+    """Phase 16's plain version, on a host process started before phase
+    0 (its ~1.5 ms a diagonal on one core then overlaps phases 0-15):
+    align_bucket_torch of the longest ONT pair's bucket on the CPU;
+    ((GB, 4) output, ms)."""
+    _i, p = ont_longest()
+    host = tuple(torch.from_numpy(a)
+                 for a in build_bucket_arrays([p], ONT))
+    t0 = time.perf_counter()
+    ref = align_bucket_torch(*host, ONT)
+    return ref.numpy(), (time.perf_counter() - t0) * 1e3
+
+
+def phase_ont_pair(job) -> int:
+    """The kernel on the longest ONT pair against the plain version that
+    `job` (`ont_plain`) computed on the same inputs."""
+    i, p = ont_longest()
+    bucket = build_bucket_arrays([p], ONT)
+    args = to_cuda(*bucket)
+    got = align_bucket(*args, ONT)
+    kernel_ms = cuda_ms(lambda: align_bucket(*args, ONT), reps=3)
+    got = got.cpu()
+    ref, plain_ms = job.get()
+    ref = torch.from_numpy(ref)
+    err = int((got - ref).abs().max())
+    bound_ms, bound_by = antidiag_bound(bucket, got.numpy(), ONT)
+    print(f"  pair {i}, (qlen, rlen) {(p[2], p[3])}, {int(got[0, 3])} "
+          f"diagonals swept: GB={bucket[0].shape[0]} "
+          f"W={2 * bucket[1].shape[1]} max_abs_err={err} kernel "
+          f"{kernel_ms:.3f} ms, plain version (CPU, one thread) "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    if not torch.equal(got, ref):
+        bad = (got != ref).any(dim=1).nonzero().flatten()[:5].tolist()
+        raise AssertionError(f"ONT pair {i}: kernel != plain version at "
+                             f"rows {bad}: {got[bad].tolist()} vs "
+                             f"{ref[bad].tolist()}")
+    return err
 
 
 def phase_headline() -> dict:
@@ -873,6 +962,7 @@ def reset_counts() -> None:
     cs.launches_chain = 0
     walk.launches = 0
     cb.launches = 0
+    cb.launches_rows.update(dict.fromkeys(cb.launches_rows, 0))
     colband_probe.launches = 0
     wave_probe.launches = 0
     skew_probe.launches = 0
@@ -1364,21 +1454,42 @@ def colband_bound(bucket, out, cfg) -> tuple[float, str]:
                  + OPS_PER_DIAG * int(out[:, 3].astype(np.int64).sum()))
 
 
+def colband_all(args, cfg, shapes) -> dict:
+    """Every B7 instance that takes the bucket's window, launched on the
+    same CUDA tensors: {rows a thread: (GB, 4) output}."""
+    return {r: cb.colband_cuda(*args, cfg, shapes, rows=r)
+            for r in colband_bench.instances(shapes[0])}
+
+
+def expect_instances(name, gots: dict, ref) -> int:
+    """Every instance's output equals `ref` (on its device); returns the
+    largest absolute difference."""
+    err = 0
+    for rows, got in gots.items():
+        got = got.to(ref.device)
+        err = max(err, int((got - ref).abs().max()) if got.numel() else 0)
+        if not torch.equal(got, ref):
+            bad = (got != ref).any(dim=1).nonzero().flatten()[:5].tolist()
+            raise AssertionError(
+                f"{name}: B7 R={rows} != colband_torch at rows {bad}: "
+                f"{got[bad].tolist()} vs {ref[bad].tolist()}")
+    return err
+
+
 def compare_colband(name, pairs, bucket, cfg) -> int:
-    """B7 vs colband_torch on the same CUDA tensors, then vs the
-    antidiagonal kernel (all four columns) and the oracle."""
+    """Every B7 instance vs colband_torch on the same CUDA tensors, then
+    the engine's instance vs the antidiagonal kernel (all four columns)
+    and the oracle."""
     args, shapes = colband_inputs(bucket, cfg)
-    got = cb.colband_cuda(*args, cfg, shapes)
+    gots = colband_all(args, cfg, shapes)
+    got = gots[cb.colband_rows(shapes[0])]
     ref = cb.colband_torch(*args, cfg, shapes)
     torch.cuda.synchronize()
-    err = int((got - ref).abs().max())
+    err = expect_instances(name, gots, ref)
     gb = bucket[0].shape[0]
     print(f"  {name}: GB={gb} (RW, R8pad, Qpad)={shapes[:3]} groups "
-          f"gA={shapes[4]} gB={shapes[5]} max_abs_err={err}")
-    if not torch.equal(got, ref):
-        bad = (got != ref).any(dim=1).nonzero().flatten()[:5].tolist()
-        raise AssertionError(f"{name}: B7 != colband_torch at rows {bad}: "
-                             f"{got[bad].tolist()} vs {ref[bad].tolist()}")
+          f"gA={shapes[4]} gB={shapes[5]}, instances R = {sorted(gots)} "
+          f"== colband_torch, max_abs_err={err}")
     if gb % 8 == 0:
         anti = align_bucket(*to_cuda(*bucket), cfg)
         if not torch.equal(got, anti):
@@ -1444,15 +1555,37 @@ COLBAND_RANDOM_CFGS = [
 ]
 
 
-def phase_colband_random(n: int = 100) -> int:
-    """B7 against colband_torch (run on the CPU on the same inputs) and
-    the oracle on n seeded colband-eligible buckets: bw 31-751 (one to
-    six row warps; the window rolls past its first groups), homologous
-    prefixes with unrelated tails under tight Z-drops (the sweep stops
-    inside a group), N runs, extreme aspect ratios (empty slices), and
-    GB not a multiple of 8."""
-    err = 0
+def check_random_colband(seed, bucket, pairs, cfg, shapes, gots):
+    """Phase 11b's host half for one bucket (on a pool process): every
+    instance's (GB, 4) output in `gots` against one colband_torch result
+    on the CPU, and the engine's instance against the oracle.  Returns
+    max |err|; raises on a mismatch."""
+    ref = cb.colband_torch(torch.from_numpy(cb.chain_scalars(bucket[0], cfg)),
+                           torch.from_numpy(bucket[1]),
+                           torch.from_numpy(bucket[2]), cfg, shapes)
+    gots = {r: torch.from_numpy(g) for r, g in gots.items()}
+    err = expect_instances(
+        f"random colband bucket {seed} (bw {cfg.band_width})", gots, ref)
+    got = gots[cb.colband_rows(shapes[0])]
+    for p, (qc, tc, ql, rl) in enumerate(pairs):
+        exp = tuple(int(x) for x in align_one_sweep(qc, tc, ql, rl, cfg))
+        if tuple(got[p, :3].tolist()) != exp:
+            raise AssertionError(f"random colband bucket {seed}: pair "
+                                 f"{p} B7 {got[p].tolist()} oracle {exp}")
+    return err
+
+
+def phase_colband_random(pool, n: int = 100) -> int:
+    """Every B7 instance against one colband_torch result (run on the CPU
+    on the same inputs, in `pool`'s processes: `check_random_colband`)
+    and the engine's instance against the oracle on n seeded
+    colband-eligible buckets: bw 31-751 (one to 24 row warps; the window
+    rolls past its first groups), homologous prefixes with unrelated
+    tails under tight Z-drops (the sweep stops inside a group), N runs,
+    extreme aspect ratios (empty slices), and GB not a multiple of 8."""
+    n_inst = 0
     kinds = {"rolling": 0, "zdrop": 0, "warps>1": 0}
+    checks = []
     for seed in range(n):
         rng = np.random.default_rng(11000 + seed)
         cfg = COLBAND_RANDOM_CFGS[seed % len(COLBAND_RANDOM_CFGS)]
@@ -1481,27 +1614,22 @@ def phase_colband_random(n: int = 100) -> int:
         m = len(pairs)  # the wire's padding rows cut off: GB = m
         bucket = (meta[:m].copy(), tcodes[:m].copy(), qfwd[:m].copy())
         args, shapes = colband_inputs(bucket, cfg)
-        got = cb.colband_cuda(*args, cfg, shapes)
-        ref = cb.colband_torch(*(a.cpu() for a in args), cfg, shapes)
-        got = got.cpu()
-        err = max(err, int((got - ref).abs().max()))
-        if not torch.equal(got, ref):
-            bad = (got != ref).any(dim=1).nonzero().flatten()[:5].tolist()
-            raise AssertionError(f"random colband bucket {seed} (bw {bw}): "
-                                 f"B7 != colband_torch at rows {bad}")
-        for p, (qc, tc, ql, rl) in enumerate(pairs):
-            exp = tuple(int(x) for x in align_one_sweep(qc, tc, ql, rl, cfg))
-            if tuple(got[p, :3].tolist()) != exp:
-                raise AssertionError(f"random colband bucket {seed}: pair "
-                                     f"{p} B7 {got[p].tolist()} oracle {exp}")
+        gots = {r: g.cpu().numpy()
+                for r, g in colband_all(args, cfg, shapes).items()}
+        n_inst += len(gots)
+        got = gots[cb.colband_rows(shapes[0])]
         kinds["rolling"] += shapes[5] > shapes[4]
-        kinds["zdrop"] += int(((got[:, 3] < torch.from_numpy(
-            cb.chain_scalars(bucket[0], cfg)[4])).sum()) > 0)
+        kinds["zdrop"] += int((got[:, 3] < cb.chain_scalars(
+            bucket[0], cfg)[4]).sum() > 0)
         kinds["warps>1"] += shapes[0] > 256
+        checks.append(pool.apply_async(
+            check_random_colband, (seed, bucket, pairs, cfg, shapes, gots)))
+    err = max(c.get() for c in checks)
     print(f"  {n} random buckets ({kinds['rolling']} with a rolling "
           f"window, {kinds['warps>1']} of several row warps, "
-          f"{kinds['zdrop']} stopped by a Z-drop before the end cap): B7 "
-          "== colband_torch == the oracle")
+          f"{kinds['zdrop']} stopped by a Z-drop before the end cap): "
+          f"every B7 instance ({n_inst} launches) == colband_torch == the "
+          "oracle")
     if min(kinds.values()) == 0:
         raise AssertionError(f"the random colband buckets miss a kind: "
                              f"{kinds}")
@@ -1522,32 +1650,90 @@ def best_walls(engines, encoded, ref, reps=3, **kw) -> list[float]:
     return best
 
 
-def phase_headline_colband(encoded) -> dict:
-    """encoded: the headline set of phase 4."""
-    on = AlignEngine(CANON, EngineConfig(colband=True), device="cuda")
-    off = AlignEngine(CANON, device="cuda")
+def counted_colband_align(encoded, cfg) -> dict:
+    """One align of `encoded` with `EngineConfig(colband=True)` at `cfg`,
+    the launch counts set to 0 just before it and read just after: every
+    bucket routed "colband", one B7 launch each, all of the instance
+    `ops.colband.colband_rows` takes, and all four fields equal to the
+    colband=False run."""
+    on = AlignEngine(cfg, EngineConfig(colband=True), device="cuda")
+    off = AlignEngine(cfg, device="cuda")
     on.align(encoded)  # warm-up
     ref = off.align(encoded)
 
     reset_counts()
     res = on.align(encoded)
     n_launches, n_anti = cb.launches, kernel.launches
-    print(f"  one align(colband=True): {res.n_buckets} buckets of "
-          f"{sorted({b.meta.shape[0] for b in on.iter_buckets(encoded)})} "
-          f"pairs, routes {sorted(set(res.routes))}, launches B7 / B1-B2 "
-          f"{n_launches} / {n_anti}")
+    by_rows = {r: n for r, n in cb.launches_rows.items() if n}
+    buckets = list(on.iter_buckets(encoded))
+    RW = cb.colband_shapes(buckets[0].meta, cfg)[0]
+    chosen = cb.colband_rows(RW)
+    print(f"  one align(colband=True) at bw {cfg.band_width}: "
+          f"{res.n_buckets} buckets of "
+          f"{sorted({b.meta.shape[0] for b in buckets})} pairs, RW {RW}, "
+          f"routes {sorted(set(res.routes))}, launches B7 / B1-B2 "
+          f"{n_launches} / {n_anti}, by rows a thread {by_rows} (the "
+          f"engine's instance: R={chosen})")
     if (res.routes != ["colband"] * res.n_buckets or n_anti != 0
-            or n_launches != res.n_buckets or n_launches == 0):
-        raise AssertionError(f"routes {res.routes}, {n_launches} B7 and "
-                             f"{n_anti} antidiagonal launches")
-    for f in ("scores", "query_ends", "target_ends", "diags"):
+            or n_launches != res.n_buckets or n_launches == 0
+            or by_rows != {chosen: n_launches}):
+        raise AssertionError(f"routes {res.routes}, {n_launches} B7 "
+                             f"({by_rows}) and {n_anti} antidiagonal "
+                             "launches")
+    for f in FIELDS:
         if not (getattr(res, f) == getattr(ref, f)).all():
             bad = np.nonzero(getattr(res, f) != getattr(ref, f))[0][:5]
-            raise AssertionError(f"{f} != colband=False run at {bad}")
+            raise AssertionError(f"bw {cfg.band_width}: {f} != "
+                                 f"colband=False run at {bad}")
     print(f"  all {len(encoded)} pairs equal the colband=False run (routes "
           f"{sorted(set(ref.routes))}, {ref.n_buckets} buckets) in all four "
           "fields")
+    return {"on": on, "off": off, "ref": ref, "res": res,
+            "buckets": buckets, "RW": RW, "rows": chosen,
+            "launches": n_launches}
 
+
+def fewest_column_bucket(run: dict, cfg) -> dict:
+    """The fewest-column bucket of a `counted_colband_align` run: every
+    instance against one `colband_torch` result on the card (both
+    timed), the engine's instance against B2 (timed), and the bound."""
+    b = min(run["buckets"], key=lambda b: int(b.meta[:, 0].max()))
+    bucket = (b.meta, b.tcodes, b.qfwd)
+    args, shapes = colband_inputs(bucket, cfg)
+    gots = colband_all(args, cfg, shapes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = cb.colband_torch(*args, cfg, shapes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = expect_instances(f"fewest-column bucket at bw {cfg.band_width}",
+                           gots, plain)
+    anti_args = to_cuda(*bucket)
+    anti = align_bucket(*anti_args, cfg)
+    if not torch.equal(gots[run["rows"]], anti):
+        raise AssertionError(f"fewest-column bucket at bw "
+                             f"{cfg.band_width}: B7 != B2")
+    anti_ms = cuda_ms(lambda: align_bucket(*anti_args, cfg), reps=3)
+    bound_ms, bound_by = colband_bound(bucket, plain.cpu().numpy(), cfg)
+    rows = run["rows"]
+    ms = cuda_ms(lambda: cb.colband_cuda(*args, cfg, shapes, rows=rows),
+                 reps=10)
+    print(f"  fewest-column bucket: GB={b.meta.shape[0]} (RW, R8pad, Qpad)="
+          f"{shapes[:3]} longest query {int(b.meta[:, 0].max())}: "
+          f"instances R = {sorted(gots)} == colband_torch "
+          f"({plain_ms:.3f} ms); B7 R={rows} {ms:.3f} ms, B2 "
+          f"{anti_ms:.3f} ms, equal (B2 / B7 {anti_ms / ms:.4f}); bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return {"bucket": bucket, "args": args, "shapes": shapes,
+            "instances": sorted(gots), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "anti_ms": anti_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_headline_colband(encoded) -> dict:
+    """encoded: the headline set of phase 4."""
+    run = counted_colband_align(encoded, CANON)
+    on, off, ref, res = run["on"], run["off"], run["ref"], run["res"]
     wall_on, wall_off = best_walls((on, off), encoded, ref)
     cells = banded_cells([e[2] for e in encoded], [e[3] for e in encoded],
                          res.diags, CANON.band_width)
@@ -1563,39 +1749,47 @@ def phase_headline_colband(encoded) -> dict:
     print("  host split of one align(colband=True), ms: "
           + " ".join(f"{k} {v:.3f}" for k, v in split.items()))
 
-    b = min(on.iter_buckets(encoded), key=lambda b: int(b.meta[:, 0].max()))
-    bucket = (b.meta, b.tcodes, b.qfwd)
-    args, shapes = colband_inputs(bucket, CANON)
-    got = cb.colband_cuda(*args, CANON, shapes)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = cb.colband_torch(*args, CANON, shapes)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    if not torch.equal(got, plain):
-        raise AssertionError("fewest-column bucket: B7 != colband_torch")
-    err = int((got - plain).abs().max())
-    ms = cuda_ms(lambda: cb.colband_cuda(*args, CANON, shapes), reps=10)
-    anti_args = to_cuda(*bucket)
-    anti = align_bucket(*anti_args, CANON)
-    if not torch.equal(got, anti):
-        raise AssertionError("fewest-column bucket: B7 != B2")
-    anti_ms = cuda_ms(lambda: align_bucket(*anti_args, CANON), reps=3)
-    out = got.cpu().numpy()
-    bound_ms, bound_by = colband_bound(bucket, out, CANON)
-    slope = colband_bench.bench_bucket(*bucket, CANON, reps=8, rounds=3)
-    print(f"  fewest-column bucket: GB={b.meta.shape[0]} (RW, R8pad, Qpad)="
-          f"{shapes[:3]} longest query {int(b.meta[:, 0].max())}: B7 "
-          f"{ms:.3f} ms, colband_torch {plain_ms:.3f} ms, equal; B2 on the "
-          f"same bucket {anti_ms:.3f} ms ({anti_ms / ms:.4f}x), equal; "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
-    print(f"  P1 slope on that bucket: {slope['ms']:.4f} ms per launch, "
-          f"{slope['ns_per_col']:.3f} ns per column ({slope['cols']} "
-          "columns)")
-    colband_bench.print_split(colband_bench.column_split(*bucket, CANON))
-    return {"launches": n_launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "res": res}
+    few = fewest_column_bucket(run, CANON)
+    args, shapes, bucket = few["args"], few["shapes"], few["bucket"]
+    instances = {}
+    for rows in few["instances"]:
+        ms = cuda_ms(lambda: cb.colband_cuda(*args, CANON, shapes, rows=rows),
+                     reps=10)
+        slope = colband_bench.bench_bucket(*bucket, CANON, reps=8, rounds=3,
+                                           rows=rows)
+        instances[rows] = {"ms": ms, "p1_ns_per_col": slope["ns_per_col"]}
+        print(f"  B7 R={rows}: {ms:.3f} ms, equal to colband_torch; B2 / B7 "
+              f"{few['anti_ms'] / ms:.4f}; P1 slope {slope['ms']:.4f} ms per "
+              f"launch, {slope['ns_per_col']:.3f} ns per column "
+              f"({slope['cols']} columns)")
+        colband_bench.print_split(colband_bench.column_split(
+            *bucket, CANON, rows))
+    return {"launches": run["launches"], "rows": run["rows"],
+            "band": CANON.band_width, "max_abs_err": few["max_abs_err"],
+            "ms": few["ms"], "plain_ms": few["plain_ms"],
+            "bound_ms": few["bound_ms"], "bound_by": few["bound_by"],
+            "res": res, "instances": instances}
+
+
+# bands of the headline set at which `colband_rows` takes the other
+# instances: RW 544 (R = 2) and RW 2032 (R = 8)
+OTHER_BANDS = (255, 1000)
+
+
+def phase_colband_bands(encoded) -> dict:
+    """The headline set through the colband route at each of
+    OTHER_BANDS, counted as phase 12's run; {R: that run's launches and
+    its fewest-column bucket's times}."""
+    out = {}
+    for bw in OTHER_BANDS:
+        cfg = colband_cfg(bw)
+        run = counted_colband_align(encoded, cfg)
+        few = fewest_column_bucket(run, cfg)
+        out[run["rows"]] = {
+            "launches": run["launches"], "rows": run["rows"], "band": bw,
+            **{k: few[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}}
+    return out
 
 
 def probe_bound(n: int, RW: int, ncols: int, with_chain: bool):
@@ -2113,13 +2307,14 @@ def round_robin(name, engine, single, encoded, wrapper, ref, expect, **kw):
     """One align() through the round-robin with its launches counted and
     its slots spied on, checked for routes, launches, turns and all four
     fields against ref; then its wall and the single-device engine's,
-    in turns.  Returns the result, the launches and the two walls
-    (ms)."""
+    in turns.  Returns the result, the launches, the two walls (ms) and
+    the counted align's B7 launches by rows a thread ({R: n})."""
     engine.align(encoded, **kw)  # warm-up
     reset_counts()
     with SlotSpy(engine, wrapper) as spy:
         res = engine.align(encoded, **kw)
     got = counts() + (cb.launches,)
+    by_rows = {r: n for r, n in cb.launches_rows.items() if n}
     nb = res.n_buckets
     if res.routes != [expect[0]] * nb or got != expect[1](nb) or nb == 0:
         raise AssertionError(f"{name}: routes {sorted(set(res.routes))}, "
@@ -2134,7 +2329,7 @@ def round_robin(name, engine, single, encoded, wrapper, ref, expect, **kw):
     one, rr = best_walls((single, engine), encoded, ref, **kw)
     print(f"      walls in turns (best of 3): single device {one * 1e3:.3f} "
           f"ms, round-robin {rr * 1e3:.3f} ms, ratio {rr / one:.4f}")
-    return res, got, [one * 1e3, rr * 1e3]
+    return res, got, [one * 1e3, rr * 1e3], by_rows
 
 
 WORKER = r"""
@@ -2303,7 +2498,7 @@ def phase_multi(head, s150, tb_head, cb_head) -> dict:
            "wall_single_ms": wall_one * 1e3, "wall_sharded_ms": wall_sh * 1e3}
 
     # (c) 8192 x 150 bp through the colsweep round-robin
-    _res, got, out["walls_colsweep"] = round_robin(
+    _res, got, out["walls_colsweep"], _r = round_robin(
         "(c) 150 bp colsweep round-robin", pinned_engine(),
         AlignEngine(CANON, device="cuda"), s150["encoded"],
         "align_bucket_colsweep", s150["res"],
@@ -2311,17 +2506,18 @@ def phase_multi(head, s150, tb_head, cb_head) -> dict:
     out["launches"].update(colsweep_sweep=got[2], colsweep_chain=got[3])
 
     # (d) the headline through the colband round-robin
-    _res, got, out["walls_colband"] = round_robin(
+    _res, got, out["walls_colband"], by_rows = round_robin(
         "(d) headline colband round-robin",
         pinned_engine(EngineConfig(colband=True)),
         AlignEngine(CANON, EngineConfig(colband=True), device="cuda"),
         encoded, "align_bucket_colband", cb_head["res"],
         ("colband", lambda nb: (0, 0, 0, 0, 0, nb)))
     out["launches"]["colband"] = got[5]
+    out["launches"].update({f"colband_r{r}": n for r, n in by_rows.items()})
 
     # (e) the headline with CIGARs: sub-buckets in turn
     tb_engine = pinned_engine()
-    res, got, out["walls_traceback"] = round_robin(
+    res, got, out["walls_traceback"], _r = round_robin(
         "(e) headline + CIGARs round-robin", tb_engine, tb_head["engine"],
         encoded, "align_bucket_traceback", tb_head["res"],
         ("walk", lambda nb: (0, nb, 0, 0, nb, 0)), traceback=True)
@@ -2348,6 +2544,9 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     rng = np.random.default_rng(2024)
+    pool = plain_pool()  # its processes start while phases 0-3 run
+    ont = ont_pool()
+    ont_job = ont.apply_async(ont_plain)  # runs beside phases 0-15
     with Phase("0 card"):
         smi = phase_card()
     with Phase("1 build"):
@@ -2357,7 +2556,7 @@ def main() -> int:
     with Phase("3 kernel vs oracle"):
         err = max(err, phase_oracle(rng))
     with Phase("3b kernel vs plain version, random buckets"):
-        err = max(err, phase_random_buckets())
+        err = max(err, phase_random_buckets(pool))
     with Phase("4 headline 1024 x 10 kb"):
         head = phase_headline()
     with Phase("5 colsweep kernels vs plain versions"):
@@ -2385,17 +2584,24 @@ def main() -> int:
         cb_err = phase_colband_vs_plain(rng)
     with Phase("11b colband kernel vs plain version and oracle, random "
                "buckets"):
-        cb_err = max(cb_err, phase_colband_random())
+        cb_err = max(cb_err, phase_colband_random(pool))
+    pool.close()
+    pool.join()
     with Phase("12 headline 1024 x 10 kb with colband"):
         cb_head = phase_headline_colband(head["encoded"])
+    with Phase("12b headline set with colband at bw 255 and 1000"):
+        cb_bands = phase_colband_bands(head["encoded"])
     with Phase("13 colband cost probe"):
         probe = phase_probe()
     with Phase("14 wave-interleave probe (P3)"):
         waves = phase_wave_probe(rng)
     with Phase("15 skewed-frame probe (P4)"):
         skew = phase_skew_probe(rng, head["ns_per_diag"])
-    with Phase("16 ONT pairs past 65535 rows vs plain version"):
-        err = max(err, phase_ont_pairs())
+    with Phase("16 the longest ONT pair (past 65535 rows) vs plain "
+               "version"):
+        err = max(err, phase_ont_pair(ont_job))
+    ont.close()
+    ont.join()
     with Phase("17 the command line and streaming"):
         phase_cli()
     with Phase("18 engine stress"):
@@ -2439,10 +2645,21 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
         })
+    cb_err = max(cb_err, cb_head["max_abs_err"],
+                 *(t["max_abs_err"] for t in cb_bands.values()))
+    # "colband": B7 as the headline's colband route launches it;
+    # "colband_r<R>": each instance on the colband path whose band makes
+    # the engine take it (phase 12 or 12b), with that run's launches and
+    # its fewest-column bucket's times
+    paths = {cb_head["rows"]: cb_head, **cb_bands}
+    if sorted(paths) != sorted(cb.COLBAND_ROWS):
+        raise AssertionError(f"the colband paths took instances "
+                             f"{sorted(paths)}, not {cb.COLBAND_ROWS}")
+    b7 = [("colband", cb_head)] + [(f"colband_r{rows}", paths[rows])
+                                   for rows in cb.COLBAND_ROWS]
     for name, t, replaces in (
-        ("colband", {**cb_head, "max_abs_err": max(
-            cb_err, cb_head["max_abs_err"])},
-         "agatha_tpu/ops/colband.py:823"),
+        *((n, {**t, "max_abs_err": cb_err}, "agatha_tpu/ops/colband.py:823")
+          for n, t in b7),
         ("colband_probe", probe, "scripts/colband_probe.py:278"),
     ):
         kernels.append({
@@ -2452,6 +2669,7 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
+            **({"band": t["band"]} if "band" in t else {}),
         })
     for name, t, replaces in (
         ("wave_probe", waves, "scripts/wave_probe.py:266"),

@@ -44,6 +44,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 STANDIN_H = r"""
 #pragma once
 #include <climits>
+#include <csetjmp>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
@@ -71,18 +72,31 @@ struct dim { int x; };
 inline dim threadIdx, blockIdx, blockDim;
 // A block runs as fibers of one OS thread, one per CUDA thread: a fiber
 // runs until it waits at a barrier, then the block's other fibers take
-// their turns (so the test's speed does not depend on free cores).
+// their turns (so the test's speed does not depend on free cores).  A
+// fiber's first run starts from its ucontext; every switch after that
+// saves and restores registers and the stack pointer alone (_setjmp /
+// _longjmp: no signal mask, so no system call).
 namespace standin {
 constexpr size_t kStack = 1 << 16;
-inline ucontext_t main_ctx;
+struct Jump { jmp_buf b; };
+inline jmp_buf main_jump;
+inline std::vector<Jump> jumps;
+inline std::vector<char> started;
 inline std::vector<ucontext_t> ctx;
 inline std::vector<std::unique_ptr<char[]>> stacks;
 inline std::vector<char> done;
+// the barrier generation a fiber waits to see change, or null: the
+// scheduler resumes only fibers whose barrier has opened
+inline std::vector<const unsigned*> wait_gen;
+inline std::vector<unsigned> wait_val;
 inline std::function<void()> kernel_call;
-inline void yield() { swapcontext(&ctx[threadIdx.x], &main_ctx); }
+inline void yield() {
+  if (!_setjmp(jumps[threadIdx.x].b)) _longjmp(main_jump, 1);
+}
 inline void entry(int t) {
   kernel_call();
   done[t] = 1;
+  _longjmp(main_jump, 1);  // a fiber never returns through uc_link
 }
 }  // namespace standin
 struct Barrier {
@@ -94,14 +108,21 @@ struct Barrier {
       ++gen;
       return;
     }
+    standin::wait_gen[threadIdx.x] = &gen;
+    standin::wait_val[threadIdx.x] = g;
     while (gen == g) standin::yield();
+    standin::wait_gen[threadIdx.x] = nullptr;
   }
   int n, count = 0;
   unsigned gen = 0;
 };
 inline Barrier* g_block;
 inline std::vector<Barrier> g_warps;
-inline int g_lanes[32][32];
+// two tables a warp, taken in turn: a lane posts into a table again only
+// after every lane has posted into the other, so after every lane has
+// read this one
+inline int g_lanes[32][2][32];
+inline std::vector<unsigned char> g_turn;  // per thread: its next table
 // Runs fn() as the `threads` CUDA threads (a multiple of 32) of block b.
 inline void run_block(int b, int threads, std::function<void()> fn) {
   using namespace standin;
@@ -115,18 +136,28 @@ inline void run_block(int b, int threads, std::function<void()> fn) {
   while (static_cast<int>(stacks.size()) < threads)
     stacks.emplace_back(new char[kStack]);
   done.assign(threads, 0);
+  started.assign(threads, 0);
+  jumps.resize(threads);
+  g_turn.assign(threads, 0);
+  wait_gen.assign(threads, nullptr);
+  wait_val.assign(threads, 0);
   for (int t = 0; t < threads; ++t) {
     getcontext(&ctx[t]);
     ctx[t].uc_stack.ss_sp = stacks[t].get();
     ctx[t].uc_stack.ss_size = kStack;
-    ctx[t].uc_link = &main_ctx;
+    ctx[t].uc_link = nullptr;
     makecontext(&ctx[t], reinterpret_cast<void (*)()>(entry), 1, t);
   }
   for (int left = threads; left > 0;) {
     for (int t = 0; t < threads; ++t) {
-      if (done[t]) continue;
+      if (done[t] || (wait_gen[t] && *wait_gen[t] == wait_val[t]))
+        continue;
       threadIdx.x = t;
-      swapcontext(&main_ctx, &ctx[t]);
+      if (!_setjmp(main_jump)) {
+        if (started[t]) _longjmp(jumps[t].b, 1);
+        started[t] = 1;
+        setcontext(&ctx[t]);
+      }
       left -= done[t];
     }
   }
@@ -136,33 +167,31 @@ inline void __syncwarp(unsigned = ~0u) {
   g_warps[threadIdx.x >> 5].arrive_and_wait();
 }
 // every lane of the warp posts v; returns the table row (valid until
-// the second barrier, which __warp_done passes)
+// the lane's next post)
 inline const int* __warp_post(int v) {
   const int w = threadIdx.x >> 5;
-  g_lanes[w][threadIdx.x & 31] = v;
+  int* const row = g_lanes[w][g_turn[threadIdx.x]];
+  g_turn[threadIdx.x] ^= 1;
+  row[threadIdx.x & 31] = v;
   g_warps[w].arrive_and_wait();
-  return g_lanes[w];
+  return row;
 }
-inline void __warp_done() { g_warps[threadIdx.x >> 5].arrive_and_wait(); }
 inline int __reduce_max_sync(unsigned, int v) {
   const int* t = __warp_post(v);
   int m = INT_MIN;
   for (int i = 0; i < 32; ++i) m = m > t[i] ? m : t[i];
-  __warp_done();
   return m;
 }
 inline int __all_sync(unsigned, int v) {
   const int* t = __warp_post(v != 0);
   int all = 1;
   for (int i = 0; i < 32; ++i) all &= t[i];
-  __warp_done();
   return all;
 }
 inline unsigned __ballot_sync(unsigned, int v) {
   const int* t = __warp_post(v != 0);
   unsigned bits = 0;
   for (int i = 0; i < 32; ++i) bits |= static_cast<unsigned>(t[i]) << i;
-  __warp_done();
   return bits;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
@@ -181,7 +210,6 @@ inline T __shfl_from(T v, int src) {
   std::memcpy(&x, &v, 4);
   const int* t = __warp_post(x);
   const int y = t[src];
-  __warp_done();
   T r;
   std::memcpy(&r, &y, 4);
   return r;
@@ -230,7 +258,8 @@ def compile_standin(d, body: str, driver: str):
     (d / "driver.cpp").write_text(driver)
     so = d / "libstandin.so"
     proc = subprocess.run(
-        [gxx, "-std=c++20", "-O2", "-shared", "-fPIC", f"-I{d}",
+        [gxx, "-std=c++20", "-O2", "-U_FORTIFY_SOURCE", "-shared", "-fPIC",
+         f"-I{d}",
          "-Wno-unknown-pragmas", "-o", str(so), str(d / "driver.cpp"),
          "-lpthread"], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -10,6 +10,8 @@ The CUDA kernel and the probe instances are compared with their plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from agatha_tpu.ops.sweep import align_one_sweep
 from agatha_tpu_torch import engine as tengine
 from agatha_tpu_torch.config import config_from
 from agatha_tpu_torch.engine import AlignEngine
+from agatha_tpu_torch.ops import _nvcc
 from agatha_tpu_torch.ops import colband as tcb
 from agatha_tpu_torch.ops import kernel as tk
 from agatha_tpu_torch.probes import colband_bench, colband_probe
@@ -464,3 +467,47 @@ def test_bench_harness_stages_a_bucket(rng):
     got = tcb.colband_torch(scalars, tcodes, qfwd, cfg, shapes)
     assert torch.equal(got, tcb.align_bucket_colband(
         *(torch.from_numpy(a) for a in host), cfg))
+
+
+def test_colband_rows_rule_fits_every_window():
+    """`colband_rows`: the fewest rows a thread that keep a block within
+    384 row threads (the instances measured fastest at RW 544 at R = 2,
+    1536 at R = 4, 2032 at R = 8; at RW 288 R = 2 was 0.7% behind R =
+    4), and every window the gate admits gets an instance whose block
+    fits its launch bound (`max_threads`: 1024 at most, 416 for R =
+    4)."""
+    assert [tcb.colband_rows(rw) for rw in (288, 544, 1536, 2032, 4048)] \
+        == [2, 2, 4, 8, 8]
+    assert [tcb.max_threads(r) for r in tcb.COLBAND_ROWS] == [1024, 416, 544]
+    for rw in range(8, 4097, 8):
+        rows = tcb.colband_rows(rw)
+        assert tcb.block_threads(rw, rows) <= tcb.max_threads(rows), rw
+        assert rw // rows <= tcb.COLBAND_ROW_THREADS or rows == 8, rw
+
+
+def test_bound_probe_covers_the_rule_and_reads_ptxas():
+    """`colband_bench.bound_ab`'s variant bound (416 threads) takes every
+    block the rule gives R = 2 or 4, its source edit has one site, and
+    `kernel_registers` reads each B7 instance's registers and spills
+    from a ptxas report (other kernels left out)."""
+    bound = tcb.COLBAND_ROW_THREADS + 32
+    for rw in range(8, 4097, 8):
+        rows = tcb.colband_rows(rw)
+        if rows < 8:
+            assert tcb.block_threads(rw, rows) <= bound, rw
+    with open(os.path.join(_nvcc.CSRC, "colband.cu")) as f:
+        assert f.read().count(colband_bench.LAUNCH_BOUND) == 1
+    entry = ("ptxas info    : Compiling entry function '_ZN4_GLOBAL_{}' "
+             "for 'sm_90a'\n"
+             "    0 bytes stack frame, {} bytes spill stores, 0 bytes "
+             "spill loads\n"
+             "ptxas info    : Used {} registers, used 1 barriers\n")
+    log = (entry.format("14colband_kernelILi4ELb0EEEvNS_6ParamsEPx", 0, 57)
+           + entry.format("12probe_kernelILb1ELb1ELb1EEEvNS", 0, 83)
+           + entry.format("14colband_kernelILi2ELb1EEEvNS_6ParamsEPx", 8,
+                          62))
+    regs = colband_bench.kernel_registers(log)
+    assert sorted(regs) == ["R=2 split", "R=4"]
+    assert "Used 57 registers" in regs["R=4"]
+    assert "0 bytes spill stores" in regs["R=4"]
+    assert "8 bytes spill stores" in regs["R=2 split"]

@@ -526,6 +526,30 @@ def test_colband_kernel_equals_plain_antidiag_and_oracle(cuda, case):
                                                           cfg)), p
 
 
+@pytest.mark.parametrize("rows", colband.COLBAND_ROWS)
+@pytest.mark.parametrize("case", ["bw751-rolling", "bw31-z20-empty-slices",
+                                  "all-N-and-padding"])
+def test_colband_instance_equals_plain_and_oracle(cuda, case, rows):
+    """Each B7 instance (R rows a thread) == the plain version == the
+    oracle, its own launch counter and the total one up by one."""
+    cfg, make = COLBAND_CASES[case]
+    pairs = make()
+    meta, tcodes, qfwd = kernel.build_bucket_arrays(pairs, cfg)
+    shapes = colband.colband_shapes(meta, cfg)
+    scalars = torch.from_numpy(colband.chain_scalars(meta, cfg)).to(cuda)
+    tc, qf = (torch.from_numpy(a).to(cuda) for a in (tcodes, qfwd))
+    before = (colband.launches, colband.launches_rows[rows])
+    got = colband.colband_cuda(scalars, tc, qf, cfg, shapes, rows=rows)
+    assert (colband.launches, colband.launches_rows[rows]) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, colband.colband_torch(scalars, tc, qf, cfg,
+                                                  shapes))
+    out = got.cpu().numpy()
+    for p, (qc, tc_, ql, rl) in enumerate(pairs):
+        assert tuple(out[p, :3]) == tuple(align_one_sweep(qc, tc_, ql, rl,
+                                                          cfg)), p
+
+
 def test_colband_kernel_any_gb(cuda):
     """GB neither a multiple of 8 nor of 128."""
     cfg = COLBAND_CASES["bw63-mixed"][0]
@@ -639,6 +663,20 @@ def test_bench_harness_times_the_production_kernel(cuda):
     assert colband.launches == before + 1 + 2 * (4 + 2)
     assert r["ms"] > 0 and r["ns_per_col"] > 0
     assert r["cols"] == int(meta[:, 0].max())
+
+
+@pytest.mark.parametrize("rows", colband.COLBAND_ROWS)
+def test_colband_split_instance_equals_production(cuda, rows):
+    """Each R's clock64 instance gives the production instance's outputs
+    (`column_split` raises otherwise), one part row per row warp."""
+    cfg = COLBAND_CASES["bw751-rolling"][0]
+    meta, tcodes, qfwd = kernel.build_bucket_arrays(_pairs(53, 8, 1500,
+                                                           2500), cfg)
+    RW = colband.colband_shapes(meta, cfg)[0]
+    r = colband_bench.column_split(meta, tcodes, qfwd, cfg, rows)
+    assert r["rows"] == rows and 0 < r["columns"] <= int(meta[:, 0].max())
+    assert len(r["cycles_per_column"]["row warps"]) == \
+        colband.block_threads(RW, rows) // 32 - 1
 
 
 def _ragged_meta(seed, n, lo, hi, device):
