@@ -88,11 +88,19 @@
 // rings, skewed) gained only 4.6%, since skewed warps still waited
 // for the slowest one's passes, and was not kept.
 //
-// probe_kernel keeps this structure (rows in registers, the scan, the
-// ring, the chain lane, a rolling window every group) with the probe's
-// placeholder masks and its own segment chain, and switches for the
-// chain, the E scan and the ring: timing-faithful, semantically wrong,
-// bit-identical to colband_probe_torch in probes/colband_probe.py.
+// probe_kernel keeps this layout: the instances of R rows a thread
+// (launch bounds colband_max_threads(R); the wrapper takes colband_rows'
+// R), H, F and the codes in registers, the roll 8 / R threads up, the
+// two barriers a column, the warp scan with one warp reduction of the
+// totals, DPX maxima, the ring merge, and the chain warp's one round a
+// group (the probe's own 16-diagonal segment chain, one diagonal a
+// lane).  It omits the slice / chunk algebra and the boundary strips
+// (placeholder interval masks and sentinels stand in), the wire loads
+// (target codes rw & 3, an all-zero query), the pinned window phases
+// (it rolls every group), the early exit and the chain's tail rounds.
+// It switches the chain, the E scan and the ring: timing-faithful,
+// semantically wrong, bit-identical to colband_probe_torch in
+// probes/colband_probe.py.
 
 #include <climits>
 #include <cstdint>
@@ -105,7 +113,6 @@ constexpr int kMinusInf2 = -16384;  // SHRT_MIN / 2, the strip sentinel
 constexpr int kNValue = 14;         // 4-bit code of 'N'
 constexpr int kNPenalty = 1;
 constexpr int kNegBig = -(1 << 28);  // scan fill: loses every max
-constexpr int kMaxThreads = 576;     // the probe: 4096 / 8 row threads + a warp
 
 // Threads a block of colband_kernel<R> may have, its launch bound: 4096 /
 // R row threads and the chain warp, at most 1024; but R = 4 only the
@@ -149,13 +156,12 @@ __device__ __forceinline__ int pack_hr(int h, int r) {
                           static_cast<uint32_t>(r));
 }
 
-// Exclusive prefix maximum of `a` over the block's threads, in thread
-// order (kNegBig for thread 0), in two halves: warp_excl_max scans the
-// warp and posts its total in wtot (32 ints of shared memory); after a
-// __syncthreads(), warps_before (the sweep) or merge_warp_totals (the
-// probe, with the barrier inside) merges the totals of the warps
-// before.  wtot is free again once every thread has returned and passed
-// another barrier.
+// Exclusive prefix maximum of `a` over the block's row threads, in
+// thread order (kNegBig for thread 0), in two halves: warp_excl_max scans
+// the warp and posts its total in wtot (32 ints of shared memory); after
+// a __syncthreads(), warps_before merges the totals of the warps before.
+// wtot is free again once every thread has returned and passed another
+// barrier.
 __device__ __forceinline__ int warp_excl_max(int a, int* wtot) {
   const int lane = threadIdx.x & 31;
   int inc = a;
@@ -176,17 +182,6 @@ __device__ __forceinline__ int warps_before(const int* wtot) {
   const int lane = threadIdx.x & 31;
   const int w = static_cast<int>(threadIdx.x >> 5);
   return __reduce_max_sync(~0u, lane < w ? wtot[lane] : kNegBig);
-}
-
-__device__ __forceinline__ int merge_warp_totals(int exc, const int* wtot) {
-  __syncthreads();
-  for (int w = 0; w < static_cast<int>(threadIdx.x >> 5); ++w)
-    exc = max(exc, wtot[w]);
-  return exc;
-}
-
-__device__ __forceinline__ int block_excl_max(int a, int* wtot) {
-  return merge_warp_totals(warp_excl_max(a, wtot), wtot);
 }
 
 // Hands every thread's R rows of H and F to thread t - 8 / R (the window
@@ -512,97 +507,130 @@ struct ProbeParams {
   const int32_t* prev;  // (4, N)
   int32_t* out;         // (4, N)
   int32_t* state;       // null, or (3 RW + 16, N): final H, F and ring
-  int n, RW, ncols, nb, nbpad, rs;
+  int n, RW, ncols;
+  int R, nb, nbpad, rs;  // as Params
   int npre;  // log2 of the E window when the scan is off
 };
 
-// The probe's segment chain (colband_probe.py:_vchain), one 16-diagonal
-// segment replayed serially: a first-wins running argmax seeded with
-// the carry, Z-drop candidates against the state before each row, and
-// the probe's own (wrong on purpose) end-of-segment selection.
-struct ProbeChain {
-  int ms, mr, mq, term, diags;        // the carry
-  int cth, ctr, cd;                   // running argmax (th, tr, d)
-  int sel_th, sel_tr, sel_q, any, tpre, neg;  // segment accumulators
+// The carry of the probe's segment chain (colband_probe.py:_vchain), the
+// same in every lane of the chain warp.
+struct ProbeCarry {
+  int ms, mr, mq, term, diags;
 };
 
-__device__ __forceinline__ void probe_seg_begin(ProbeChain& c) {
-  c.cth = c.ms;
-  c.ctr = c.mr;
-  c.cd = c.mq + c.mr;
-  c.sel_th = c.sel_tr = c.sel_q = kNegBig;
-  c.any = 0;
-  c.tpre = 0;
-  c.neg = 0;
-}
-
-__device__ __forceinline__ void probe_seg_row(ProbeChain& c, int x, int d) {
+// One 16-diagonal segment of the probe's chain by the chain warp: lane
+// l < 16 holds the ring entry x of diagonal d0 + l.  The running
+// first-wins argmax seeded with the carry is a prefix maximum over lanes
+// of (th, earlier lane first), the carry winning ties; each row's
+// Z-drop candidate is tested against the state before it (the scan's
+// exclusive value); tpre, the prefix OR of the candidates, is a ballot;
+// and the probe's own (wrong on purpose) end-of-segment selection takes
+// each field's maximum over the rows before the first candidate and the
+// candidates, as warp reductions.
+__device__ __forceinline__ void probe_segment(ProbeCarry& c, int x, int d0) {
+  const int lane = threadIdx.x & 31;
+  const bool row = lane < 16;
   const int th = x >> 16;
   const int tr = x & 0xFFFF;
-  const int pre_th = c.cth, pre_tr = c.ctr, pre_d = c.cd;
-  if (th > c.cth) {
-    c.cth = th;
-    c.ctr = tr;
-    c.cd = d;
+  const int d = d0 + lane;
+  int key = row ? static_cast<int>((static_cast<uint32_t>(th) << 5) |
+                                   static_cast<uint32_t>(31 - lane))
+                : INT_MIN;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(~0u, key, o);
+    if (lane >= o) key = max(key, u);
+  }
+  int ex = __shfl_up_sync(~0u, key, 1);
+  if (lane == 0) ex = INT_MIN;
+  // the running state after this row (inclusive) and before it
+  const int wl = 31 - (key & 31);
+  const int wtr = __shfl_sync(~0u, tr, wl);
+  const int pl = 31 - (ex & 31);
+  const int ptr = __shfl_sync(~0u, tr, pl);
+  int run_th = c.ms, run_tr = c.mr, run_d = c.mq + c.mr;
+  if ((key >> 5) > c.ms) {
+    run_th = key >> 5;
+    run_tr = wtr;
+    run_d = d0 + wl;
+  }
+  int pre_th = c.ms, pre_tr = c.mr, pre_d = c.mq + c.mr;
+  if ((ex >> 5) > c.ms) {
+    pre_th = ex >> 5;
+    pre_tr = ptr;
+    pre_d = d0 + pl;
   }
   const int dq = d - tr;
   const int pre_q = pre_d - pre_tr;
   const bool zel = !(th > pre_th) && tr >= pre_tr && dq >= pre_q;
   const int gap = abs((tr - pre_tr) - (dq - pre_q));
-  const bool tcand = (zel && pre_th - th > kPZ + gap * kPGe) || c.term > 0;
-  c.tpre |= static_cast<int>(tcand);
-  if (c.tpre == 0 || tcand) {
-    c.sel_th = max(c.sel_th, c.cth);
-    c.sel_tr = max(c.sel_tr, c.ctr);
-    c.sel_q = max(c.sel_q, c.cd - c.ctr);
-  }
-  c.any |= static_cast<int>(tcand);
-  c.neg += ~c.tpre;  // the probe's sum of ~tpre over int32 0 / 1
+  const bool tcand =
+      row && ((zel && pre_th - th > kPZ + gap * kPGe) || c.term > 0);
+  const unsigned cand = __ballot_sync(~0u, tcand);
+  const bool tpre = (cand & (~0u >> (31 - lane))) != 0;
+  const bool sel = row && (!tpre || tcand);
+  c.ms = __reduce_max_sync(~0u, sel ? run_th : kNegBig);
+  c.mr = __reduce_max_sync(~0u, sel ? run_tr : kNegBig);
+  c.mq = __reduce_max_sync(~0u, sel ? run_d - run_tr : kNegBig);
+  c.term = cand != 0;
+  // the probe's sum of ~tpre over int32 0 / 1: -16 less the rows from
+  // the first candidate on
+  c.diags += -16 - (cand != 0 ? 17 - __ffs(cand) : 0);
 }
 
-__device__ __forceinline__ void probe_seg_end(ProbeChain& c) {
-  c.ms = c.sel_th;
-  c.mr = c.sel_tr;
-  c.mq = c.sel_q;
-  c.term = c.any;
-  c.diags += c.neg;
+// Shared memory of probe_kernel, in ints: the ring, the rolled rows xs
+// (2R, nbpad), hl (nbpad), wtot (32) and gvs (R, nbpad).
+__host__ __device__ __forceinline__ int probe_smem_ints(const ProbeParams& p) {
+  return ring_ints(p.rs) + (3 * p.R + 1) * p.nbpad + 32;
 }
 
-template <bool kChain, bool kRing, bool kScan>
-__global__ void __launch_bounds__(kMaxThreads)
+// colband_kernel's layout with the probe's placeholder masks and inputs:
+// R rows a thread in registers, the window rolled 8 rows every group,
+// the E scan (warp scans, one warp reduction of the totals), the ring
+// merge, and the chain warp's round over the group's 16 final diagonals
+// at its first column.  kChain, kRing and kScan switch the chain, the
+// ring and the scan (without it, E over the last 2^npre rows: the gv of
+// the 8 / R threads above through shared memory).
+template <int R, bool kChain, bool kRing, bool kScan>
+__global__ void __launch_bounds__(colband_max_threads(R))
 probe_kernel(const ProbeParams p) {
   extern __shared__ int smem[];
   int* const ring = smem;
   int* const xs = ring + ring_ints(p.rs);
-  int* const hl = xs + 16 * p.nbpad;
+  int* const hl = xs + 2 * R * p.nbpad;
   int* const wtot = hl + p.nbpad;
-  int* const gvs = wtot + 32;  // (8, nbpad), the windowed E form only
+  int* const gvs = wtot + 32;  // (R, nbpad), the windowed E form only
 
   const int t = threadIdx.x;
   const int pair = blockIdx.x;
   const bool active = t < p.nb;
-  const bool chain_lane = t == p.nbpad;
+  const bool chain_warp = t >= p.nbpad;
   const int qlen = p.meta[pair];
   // a zero the compiler cannot see: the probe's query is all zeros
   const uint32_t qword = static_cast<uint32_t>(p.meta[p.n + pair] - p.ncols);
+  const int width = 1 << p.npre;
 
-  int H[8], F[8];
+  // each row's E weight ge * rw and target code (rw + w0) & 3 = rw & 3
+  int wr[R], tc[R], H[R], F[R];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) H[i] = F[i] = kMinusInf2;
+  for (int i = 0; i < R; ++i) {
+    wr[i] = kPGe * (R * t + i);
+    tc[i] = (R * t + i) & 3;
+    H[i] = F[i] = kMinusInf2;
+  }
   for (int d = t; d < ring_ints(p.rs); d += blockDim.x) ring[d] = INT_MIN;
-  ProbeChain c = {};
+  ProbeCarry c = {0, 0, 0, 0, 0};
   __syncthreads();
 
   for (int g = 0; g < p.ncols / 8; ++g) {
     const int w0 = 8 * g;
     // the window advances every group
-    if (active) shift_publish(H, F, xs, p.nbpad, t);
+    if (active) shift_publish<R>(H, F, xs, p.nbpad, t);
     __syncthreads();
     if (active) {
-      shift_take(H, F, xs, p.nbpad, p.nb, t);
-      hl[t] = H[7];
+      shift_take<R>(H, F, xs, p.nbpad, p.nb, t);
+      hl[t] = H[R - 1];
     }
-    if (kChain && chain_lane) probe_seg_begin(c);
 
     for (int k = 0; k < 8; ++k) {
       const int j = 8 * g + k;
@@ -610,61 +638,67 @@ probe_kernel(const ProbeParams p) {
       const int lo = j - kPBw - w0 + (j & 7);
       const int hi = j + kPBw - w0 - (j & 3);
       const bool colm = qlen > j;
+      // lo <= rw <= hi as one unsigned test of i - (lo - R t)
+      const int band_lo = lo - R * t;
+      const unsigned band_span = static_cast<unsigned>(hi - lo);
 
       __syncthreads();  // A
-      int temp[8], gv[8];
+      // v + wr is the row's gv: kNegBig outside the mask
+      int temp[R], v[R];
       unsigned cmask = 0;
       int a = kNegBig;
       if (active) {
         int htl = t == 0 ? kMinusInf2 : hl[t - 1];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int rw = 8 * t + i;
-          const int tc = rw & 3;  // (rw + w0) & 3 with w0 % 8 == 0
-          const int s = (qc == kNValue || tc == kNValue)
+        for (int i = 0; i < R; ++i) {
+          const int s = (qc == kNValue || tc[i] == kNValue)
                             ? -kNPenalty
-                            : (qc == tc ? kPMatch : -kPMism);
+                            : (qc == tc[i] ? kPMatch : -kPMism);
           temp[i] = htl + s;
-          const bool comp = rw >= lo && rw <= hi && colm;
+          const bool comp =
+              colm && static_cast<unsigned>(i - band_lo) <= band_span;
           cmask |= static_cast<unsigned>(comp) << i;
-          gv[i] = comp ? temp[i] - kPGoe + kPGe * rw : kNegBig;
-          a = max(a, gv[i]);
+          v[i] = comp ? temp[i] - kPGoe : kNegBig - wr[i];
+          a = __viaddmax_s32(v[i], wr[i], a);
           htl = H[i];
         }
       }
-      int run;
-      int prevgv[8];
+      int run = kNegBig;
       if (kScan) {
-        run = block_excl_max(a, wtot);  // B
+        if (!chain_warp) run = warp_excl_max(a, wtot);
+        __syncthreads();  // B
+        if (!chain_warp) run = max(run, warps_before(wtot));
       } else {
-        // E over the last 2^npre rows only: the neighbour's gv through
-        // shared memory in place of the scan
+        // E over the last 2^npre rows only: the gv of the threads above
+        // through shared memory in place of the scan
         if (active) {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) gvs[i * p.nbpad + t] = gv[i];
+          for (int i = 0; i < R; ++i) gvs[i * p.nbpad + t] = v[i] + wr[i];
         }
         __syncthreads();  // B
-        if (active) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            prevgv[i] = t == 0 ? kNegBig : gvs[i * p.nbpad + t - 1];
-        }
-        run = kNegBig;
       }
       if (active) {
-        const int width = 1 << p.npre;
-        int* slot[8];
-        int old[8];
+        int slot[R], old[R];
         if (kRing) {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            slot[i] = ring + ring_slot(16 * g + 8 + 8 * t + i + k, p.rs);
-            old[i] = *slot[i];
+          for (int i = 0; i < R; ++i) {
+            slot[i] = ring_slot(16 * g + 8 + R * t + i + k, p.rs);
+            old[i] = ring[slot[i]];
+          }
+        }
+        // up[m - 1]: gv of row R t - m, the m-th row above this thread's
+        // first (row R (t - q) + R q - m of thread t - q)
+        int up[8];
+        if (!kScan) {
+#pragma unroll
+          for (int m = 1; m <= 8; ++m) {
+            if (m > width) break;
+            const int q = (m + R - 1) / R;
+            up[m - 1] = t >= q ? gvs[(R * q - m) * p.nbpad + t - q] : kNegBig;
           }
         }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int rw = 8 * t + i;
+        for (int i = 0; i < R; ++i) {
           int pmax = run;
           if (!kScan) {
             // max of gv over rows rw - width .. rw - 1
@@ -673,40 +707,38 @@ probe_kernel(const ProbeParams p) {
             for (int m = 1; m <= 8; ++m) {
               if (m > width) break;
               const int src = i - m;
-              pmax = max(pmax, src >= 0 ? gv[src] : prevgv[src + 8]);
+              pmax = max(pmax, src >= 0 ? v[src] + wr[src] : up[-src - 1]);
             }
           }
-          const int e_in = pmax - (kPGe * rw - kPGe);
+          const int e_in = pmax - wr[i] + kPGe;
           const int f_in = F[i];
-          const int h_new = max(max(temp[i], f_in), e_in);
+          const int h_new = __vimax3_s32(temp[i], f_in, e_in);
           if ((cmask >> i) & 1) {
-            F[i] = max(gv[i] - kPGe * rw, f_in - kPGe);
+            F[i] = __viaddmax_s32(f_in, -kPGe, v[i]);
             H[i] = h_new;
-            if (kRing) *slot[i] = max(old[i], pack_hr(h_new, rw + w0));
+            if (kRing)
+              ring[slot[i]] = max(old[i], pack_hr(h_new, R * t + i + w0));
           }
-          if (kScan) run = max(run, gv[i]);
+          if (kScan) run = __viaddmax_s32(v[i], wr[i], run);
         }
-        hl[t] = H[7];
-      } else if ((kChain || kRing) && chain_lane) {
-        // the 16 entries below 16 g were final when this group began;
-        // they leave the ring whether or not the chain reads them
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int ri = 2 * k + n;
-          const int slot_d = 16 * g - 16 + ri;
-          int x = INT_MIN;
-          if (kRing && slot_d >= 0) {
-            int* const slot = ring + ring_slot(slot_d, p.rs);
-            x = *slot;
-            *slot = INT_MIN;
-          }
-          if (kChain) probe_seg_row(c, x, 16 * g - 8 + ri);
+        hl[t] = H[R - 1];
+      } else if ((kChain || kRing) && chain_warp && k == 0) {
+        // one round a group: the 16 entries below 16 g were final when
+        // the group began; they leave the ring whether or not the chain
+        // reads them
+        const int lane = t & 31;
+        const int sd = 16 * g - 16 + lane;
+        int x = INT_MIN;
+        if (kRing && lane < 16 && sd >= 0) {
+          int* const slot = ring + ring_slot(sd, p.rs);
+          x = *slot;
+          *slot = INT_MIN;
         }
-        if (kChain && k == 7) probe_seg_end(c);
+        if (kChain) probe_segment(c, x, 16 * g - 8);
       }
     }
   }
-  if (chain_lane) {
+  if (t == p.nbpad) {
     // XOR with the previous repetition's output, as the probe chains
     // its repetitions through a data dependency
     p.out[pair] = c.ms ^ p.prev[pair];
@@ -721,9 +753,9 @@ probe_kernel(const ProbeParams p) {
     const size_t n = p.n;
     if (active) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        p.state[(8 * t + i) * n + pair] = H[i];
-        p.state[(p.RW + 8 * t + i) * n + pair] = F[i];
+      for (int i = 0; i < R; ++i) {
+        p.state[(R * t + i) * n + pair] = H[i];
+        p.state[(p.RW + R * t + i) * n + pair] = F[i];
       }
     }
     const int a0 = 16 * (p.ncols / 8 - 1);
@@ -773,6 +805,55 @@ bool colband_params(Params& p, const void* scal, const void* tcodes,
   return p.nbpad + 32 <= colband_max_threads(rows);
 }
 
+// Fills the launch parameters of one probe instance at `rows` rows a
+// thread (n_prefix < 0: the full E scan); false if the shapes are out of
+// its range.
+bool probe_params(ProbeParams& p, const void* meta, const void* prev,
+                  void* out, void* state, int n, int RW, int ncols,
+                  int n_prefix, int rows) {
+  if (RW < 8 || RW % 8 || RW > 4096 || ncols % 8 || n_prefix > 3 ||
+      (rows != 2 && rows != 4 && rows != 8))
+    return false;
+  p.meta = static_cast<const int32_t*>(meta);
+  p.prev = static_cast<const int32_t*>(prev);
+  p.out = static_cast<int32_t*>(out);
+  p.state = static_cast<int32_t*>(state);
+  p.n = n;
+  p.RW = RW;
+  p.ncols = ncols;
+  p.R = rows;
+  p.nb = RW / rows;
+  p.nbpad = (p.nb + 31) & ~31;
+  p.rs = ring_entries(RW);
+  p.npre = n_prefix < 0 ? 0 : n_prefix;
+  return p.nbpad + 32 <= colband_max_threads(rows);
+}
+
+using ProbeKernel = void (*)(ProbeParams);
+
+template <int R>
+ProbeKernel probe_switched(bool chain, bool ring, bool scan) {
+  switch ((chain ? 4 : 0) | (ring ? 2 : 0) | (scan ? 1 : 0)) {
+    case 0: return probe_kernel<R, false, false, false>;
+    case 1: return probe_kernel<R, false, false, true>;
+    case 2: return probe_kernel<R, false, true, false>;
+    case 3: return probe_kernel<R, false, true, true>;
+    case 4: return probe_kernel<R, true, false, false>;
+    case 5: return probe_kernel<R, true, false, true>;
+    case 6: return probe_kernel<R, true, true, false>;
+    default: return probe_kernel<R, true, true, true>;
+  }
+}
+
+// The probe instance of `rows` rows a thread with these switches.
+ProbeKernel probe_instance(int rows, bool chain, bool ring, bool scan) {
+  switch (rows) {
+    case 2: return probe_switched<2>(chain, ring, scan);
+    case 4: return probe_switched<4>(chain, ring, scan);
+    default: return probe_switched<8>(chain, ring, scan);
+  }
+}
+
 template <int R>
 cudaError_t launch_instance(const Params& p, long long* split,
                             cudaStream_t stream) {
@@ -817,61 +898,30 @@ extern "C" int agatha_colband(const void* scal, const void* tcodes,
   return static_cast<int>(err);
 }
 
-namespace {
-
-template <bool kChain, bool kRing, bool kScan>
-cudaError_t launch_probe(const ProbeParams& p, size_t smem,
-                         cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      probe_kernel<kChain, kRing, kScan>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  probe_kernel<kChain, kRing, kScan>
-      <<<p.n, p.nbpad + 32, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 // Launches one probe instance over n pairs (one block each) on `stream`:
-// with_chain and with_ring as the probe's switches, n_prefix < 0 for the
-// full E scan, else E over the last 2^n_prefix rows (n_prefix <= 3).
-// meta (2, n), prev and out (4, n) int32; state null or (3 RW + 16, n)
-// int32 for the final H, F and ring.  Returns cudaGetLastError().
+// `rows` (2, 4 or 8) window rows a thread, with_chain and with_ring as the
+// probe's switches, n_prefix < 0 for the full E scan, else E over the
+// last 2^n_prefix rows (n_prefix <= 3).  meta (2, n), prev and out (4, n)
+// int32; state null or (3 RW + 16, n) int32 for the final H, F and ring.
+// Returns cudaGetLastError().
 extern "C" int agatha_colband_probe(const void* meta, const void* prev,
                                     void* out, void* state, int n, int RW,
-                                    int ncols,
-                                    int with_chain, int n_prefix,
-                                    int with_ring, int device, void* stream) {
-  if (RW < 8 || RW % 8 || RW > 4096 || ncols % 8 || n_prefix > 3)
+                                    int ncols, int with_chain, int n_prefix,
+                                    int with_ring, int rows, int device,
+                                    void* stream) {
+  ProbeParams p;
+  if (!probe_params(p, meta, prev, out, state, n, RW, ncols, n_prefix,
+                    rows))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ProbeParams p;
-  p.meta = static_cast<const int32_t*>(meta);
-  p.prev = static_cast<const int32_t*>(prev);
-  p.out = static_cast<int32_t*>(out);
-  p.state = static_cast<int32_t*>(state);
-  p.n = n;
-  p.RW = RW;
-  p.ncols = ncols;
-  p.nb = RW / 8;
-  p.nbpad = (p.nb + 31) & ~31;
-  p.rs = ring_entries(RW);
-  p.npre = n_prefix < 0 ? 0 : n_prefix;
-  const size_t smem = sizeof(int) * (ring_ints(p.rs) + 25 * p.nbpad + 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int key = (with_chain ? 4 : 0) | (with_ring ? 2 : 0) |
-                  (n_prefix < 0 ? 1 : 0);
-  switch (key) {
-    case 0: err = launch_probe<false, false, false>(p, smem, s); break;
-    case 1: err = launch_probe<false, false, true>(p, smem, s); break;
-    case 2: err = launch_probe<false, true, false>(p, smem, s); break;
-    case 3: err = launch_probe<false, true, true>(p, smem, s); break;
-    case 4: err = launch_probe<true, false, false>(p, smem, s); break;
-    case 5: err = launch_probe<true, false, true>(p, smem, s); break;
-    case 6: err = launch_probe<true, true, false>(p, smem, s); break;
-    default: err = launch_probe<true, true, true>(p, smem, s); break;
-  }
-  return static_cast<int>(err);
+  const ProbeKernel kernel =
+      probe_instance(rows, with_chain != 0, with_ring != 0, n_prefix < 0);
+  const size_t smem = sizeof(int) * probe_smem_ints(p);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.n, p.nbpad + 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

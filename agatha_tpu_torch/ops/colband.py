@@ -605,7 +605,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.agatha_colband.argtypes = [vp] * 4 + [ci] * 15 + [vp, ci, vp]
     lib.agatha_colband.restype = ci
-    lib.agatha_colband_probe.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+    lib.agatha_colband_probe.argtypes = [vp] * 4 + [ci] * 8 + [vp]
     lib.agatha_colband_probe.restype = ci
     return lib
 

@@ -146,7 +146,8 @@ def raw_launch(lib, args, out, cfg: AlignConfig, shapes, rows: int,
         raise RuntimeError(f"colband launch failed: CUDA error {err}")
 
 
-LAUNCH_BOUND = "__launch_bounds__(colband_max_threads(R))"
+# colband_kernel's launch bound (probe_kernel has the same one)
+LAUNCH_BOUND = "__launch_bounds__(colband_max_threads(R))\ncolband_kernel("
 
 
 def bounded_build(max_threads: int):
@@ -161,8 +162,8 @@ def bounded_build(max_threads: int):
     os.makedirs(_nvcc.BUILD_DIR, exist_ok=True)
     stem = os.path.join(_nvcc.BUILD_DIR, f"colband_bound{max_threads}")
     with open(stem + ".cu", "w") as f:
-        f.write(src.replace(LAUNCH_BOUND,
-                            f"__launch_bounds__({max_threads})"))
+        f.write(src.replace(LAUNCH_BOUND, LAUNCH_BOUND.replace(
+            "colband_max_threads(R)", str(max_threads))))
     p = subprocess.run([_nvcc._nvcc(), *_nvcc.FLAGS, "-o", stem + ".so",
                         stem + ".cu"], capture_output=True, text=True)
     if p.returncode != 0:

@@ -26,18 +26,22 @@ Two implementations with the same switches:
 
 * `colband_probe_torch`: the plain version, a transcription of
   `make_kernel` over (RW, N) int32 tensors, any device;
-* `colband_probe_cuda`: the probe instances of `csrc/colband.cu`
-  (template switches for chain / ring / scan sharing the production
-  kernel's device functions), one block per pair.
+* `colband_probe_cuda`: the probe instances of `csrc/colband.cu`, on
+  the production kernel's layout (R = 2, 4 or 8 rows a thread, the R
+  that `ops.colband.colband_rows` gives B7 unless asked for another;
+  template switches for chain / ring / scan), one block per pair.
 
     python -m agatha_tpu_torch.probes.colband_probe [G] [NCOLS]
 
 times the seven variants of the original on a CUDA device (G blocks of
-128 pairs, NCOLS columns) and prints ns per column of a 128-pair block
-and the implied GCUPS at band 751 (credited cells per column:
-2 * 751 + 1 per pair x 128 pairs), with the card's name and power limit.
-Launches on one CUDA stream run in order and are not fused or hoisted,
-so the repetitions need no data dependency to be timed back to back.
+128 pairs, NCOLS columns), then the full variant and its four ablations
+at B7's headline window (RW 1536, R = 4, one block of 128 pairs), and
+prints ns per column of a 128-pair block, the implied GCUPS at band 751
+(credited cells per column: 2 * 751 + 1 per pair x 128 pairs) and each
+ablation's share of the full variant, with the card's name and power
+limit.  Launches on one CUDA stream run in order and are not fused or
+hoisted, so the repetitions need no data dependency to be timed back to
+back.
 """
 
 from __future__ import annotations
@@ -62,8 +66,11 @@ MATCH, MISM = 1, 4
 Z = 400
 NEG_BIG = -(1 << 28)
 
-# Launches of the probe instances since import (or a caller's reset).
+# Launches of the probe instances since import (or a caller's reset):
+# `launches` counts every instance, `launches_rows[R]` the instances of R
+# rows a thread.
 launches = 0
+launches_rows = dict.fromkeys(cb.COLBAND_ROWS, 0)
 
 
 def _shift_down(x, s, fill):
@@ -214,30 +221,53 @@ def colband_probe_torch(meta, prev, RW: int, ncols: int, *,
     return out
 
 
+def probe_rows(RW: int, rows: int | None = None) -> int:
+    """Rows a thread of the probe instance for a window of RW rows: the
+    one B7 takes (`colband_rows`) when None; raises ValueError when no
+    instance of `rows` rows a thread takes the window (RW / R row
+    threads and the chain warp past its launch bound)."""
+    if rows is None:
+        rows = cb.colband_rows(RW)
+    if rows not in cb.COLBAND_ROWS or cb.block_threads(RW, rows) > \
+            cb.max_threads(rows):
+        raise ValueError(f"no probe instance of {rows} rows a thread "
+                         f"takes a window of {RW} rows")
+    return rows
+
+
+def instance_prefix(RW: int, n_prefix: int | None) -> int:
+    """The CUDA instances' n_prefix: -1 for the full scan (None, or a
+    window 2 ** n_prefix of the whole RW), else 0 to 3."""
+    if n_prefix is None or 2 ** n_prefix >= RW:
+        return -1
+    if not 0 <= n_prefix <= 3:
+        raise ValueError("the CUDA probe takes n_prefix 0 to 3 or the "
+                         f"full scan, got {n_prefix}")
+    return n_prefix
+
+
 def colband_probe_cuda(meta, prev, RW: int, ncols: int, *,
                        with_chain: bool = True, n_prefix: int | None = None,
-                       with_ring: bool = True, return_state: bool = False):
+                       with_ring: bool = True, return_state: bool = False,
+                       rows: int | None = None):
     """Launch one probe instance on the current stream; (4, N) int32,
     and with ``return_state`` the final state as the plain version
-    returns it."""
+    returns it.  `rows`: the instance's rows a thread (`probe_rows`)."""
     global launches
+    if RW < 8 or RW % 8 or RW > 4096 or ncols % 8 or ncols < 8:
+        raise ValueError(f"RW={RW} must be a multiple of 8 in [8, 4096] "
+                         f"and ncols={ncols} a positive multiple of 8")
+    rows = probe_rows(RW, rows)
     n = meta.shape[1] if meta.dim() == 2 else -1
-    for name, x, rows in (("meta", meta, 2), ("prev", prev, 4)):
-        if (x.dim() != 2 or x.shape != (rows, n) or x.dtype != torch.int32
+    for name, x, height in (("meta", meta, 2), ("prev", prev, 4)):
+        if (x.dim() != 2 or x.shape != (height, n) or x.dtype != torch.int32
                 or not x.is_contiguous() or x.device != meta.device):
-            raise ValueError(f"{name} must be a contiguous ({rows}, N) "
+            raise ValueError(f"{name} must be a contiguous ({height}, N) "
                              f"int32 tensor on {meta.device}")
     if meta.device.type != "cuda":
         raise ValueError(f"colband_probe_cuda needs CUDA tensors, got "
                          f"{meta.device}")
-    if RW < 8 or RW % 8 or RW > 4096 or ncols % 8 or ncols < 8:
-        raise ValueError(f"RW={RW} must be a multiple of 8 in [8, 4096] "
-                         f"and ncols={ncols} a positive multiple of 8")
-    if n_prefix is None or 2 ** n_prefix >= RW:
-        n_prefix = -1  # the full scan
-    elif not 0 <= n_prefix <= 3:
-        raise ValueError("the CUDA probe takes n_prefix 0 to 3 or the "
-                         f"full scan, got {n_prefix}")
+    n_prefix = instance_prefix(RW, n_prefix)
     out = torch.empty_like(prev)
     state = torch.empty((3 * RW + 16, n), dtype=torch.int32,
                         device=meta.device) if return_state else None
@@ -250,12 +280,13 @@ def colband_probe_cuda(meta, prev, RW: int, ncols: int, *,
     err = lib.agatha_colband_probe(
         meta.data_ptr(), prev.data_ptr(), out.data_ptr(),
         state.data_ptr() if return_state else None, n, RW, ncols,
-        int(with_chain), n_prefix, int(with_ring), dev,
+        int(with_chain), n_prefix, int(with_ring), rows, dev,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"colband probe launch failed: CUDA error {err}")
     launches += 1
+    launches_rows[rows] += 1
     return (out, state) if return_state else out
 
 
@@ -279,6 +310,14 @@ VARIANTS = (
     ("RW 768", 768, {}),
     ("RW 384", 384, {}),
 )
+
+
+# The full variant and its four ablations at the colband headline's B7
+# window and fill: RW 1536 (R = 4 by colband_rows, 12 row warps), one
+# block of 128 pairs (one block an SM)
+ABLATION_RW, ABLATION_G = 1536, 1
+ABLATIONS = tuple((name, ABLATION_RW, switches)
+                  for name, _RW, switches in VARIANTS[:5])
 
 
 def probe_inputs(G: int, ncols: int, device):
@@ -315,8 +354,10 @@ def run_variant(name, RW, G, ncols, *, reps=8, rounds=4, **switches):
     dcols = G * ncols * (reps - reps // 2)
     ns_col = (t_full - t_half) * 1e6 / dcols
     gcups = LN * (2 * BW + 1) / ns_col
-    print(f"{name:22s} RW={RW:5d} G={G}: {t_full:8.3f}/{t_half:8.3f} ms "
-          f"{ns_col:9.2f} ns/col -> {gcups:7.2f} GCUPS-equiv", flush=True)
+    R = probe_rows(RW, switches.get("rows"))
+    print(f"{name:22s} RW={RW:5d} R={R} G={G}: {t_full:8.3f}/"
+          f"{t_half:8.3f} ms {ns_col:9.2f} ns/col -> {gcups:7.2f} "
+          "GCUPS-equiv", flush=True)
     return ns_col, gcups
 
 
@@ -331,8 +372,12 @@ def main(argv: list[str] | None = None) -> int:
     print(f"# device={device_line()}")
     print(f"banded column-sweep probe: G={G} blocks of {LN} pairs x "
           f"{ncols} columns, bw={BW}", flush=True)
-    for name, RW, switches in VARIANTS:
-        run_variant(name, RW, G, ncols, **switches)
+    for variants, g in ((VARIANTS, G), (ABLATIONS, ABLATION_G)):
+        ns = {name: run_variant(name, RW, g, ncols, **switches)[0]
+              for name, RW, switches in variants}
+        full = ns[variants[0][0]]
+        print("  share of the full variant: " + ", ".join(
+            f"{name} {v / full:.4f}" for name, v in ns.items()), flush=True)
     return 0
 
 

@@ -95,12 +95,16 @@ exit):
     align's launches counted alone, all four fields equal to the
     colband=False run, and its fewest-column bucket's instances against
     `colband_torch`, the engine's instance against B2, both timed;
-13. the cost probe (P2): each variant's CUDA instance against
-    `colband_probe_torch` exactly (outputs and the final H, F and ring)
-    at RW 384 with 128 pairs and 256 columns, then the seven timed
-    variants of `probes.colband_probe` (RW 1568 / 768 / 384, 1024 pairs,
-    2048 columns), the full variant also against its plain version at
-    that size;
+13. the cost probe (P2, on B7's layout): each instance (R = 2, 4, 8
+    rows a thread) under each of the original's five switch sets against
+    one `colband_probe_torch` result exactly (outputs and the final H, F
+    and ring) at RW 384 with 128 pairs and 256 columns, then the seven
+    timed variants of `probes.colband_probe` at `colband_rows`' R (RW
+    1568 / 768 / 384, 1024 pairs, 2048 columns), the full variant and
+    its four ablations at B7's headline window (RW 1536, R = 4, 128
+    pairs), each in ns per column and as a share of the full variant,
+    beside phase 12's clock64 split of B7 at that R and RW, and the full
+    variant at full size against its plain version, with its bound;
 14. the wave-interleave probe (P3): each instance (1, 2, 4 waves)
     against `wave_probe_torch` exactly (outputs and the whole final
     state) on 64 ragged pairs over 20 packed diagonals (the feed phase
@@ -964,6 +968,8 @@ def reset_counts() -> None:
     cb.launches = 0
     cb.launches_rows.update(dict.fromkeys(cb.launches_rows, 0))
     colband_probe.launches = 0
+    colband_probe.launches_rows.update(
+        dict.fromkeys(colband_probe.launches_rows, 0))
     wave_probe.launches = 0
     skew_probe.launches = 0
 
@@ -1757,13 +1763,14 @@ def phase_headline_colband(encoded) -> dict:
                      reps=10)
         slope = colband_bench.bench_bucket(*bucket, CANON, reps=8, rounds=3,
                                            rows=rows)
-        instances[rows] = {"ms": ms, "p1_ns_per_col": slope["ns_per_col"]}
         print(f"  B7 R={rows}: {ms:.3f} ms, equal to colband_torch; B2 / B7 "
               f"{few['anti_ms'] / ms:.4f}; P1 slope {slope['ms']:.4f} ms per "
               f"launch, {slope['ns_per_col']:.3f} ns per column "
               f"({slope['cols']} columns)")
-        colband_bench.print_split(colband_bench.column_split(
-            *bucket, CANON, rows))
+        split = colband_bench.column_split(*bucket, CANON, rows)
+        colband_bench.print_split(split)
+        instances[rows] = {"ms": ms, "p1_ns_per_col": slope["ns_per_col"],
+                           "split": split, "RW": shapes[0]}
     return {"launches": run["launches"], "rows": run["rows"],
             "band": CANON.band_width, "max_abs_err": few["max_abs_err"],
             "ms": few["ms"], "plain_ms": few["plain_ms"],
@@ -1805,7 +1812,11 @@ def probe_bound(n: int, RW: int, ncols: int, with_chain: bool):
                  + OPS_PER_DIAG * rows)
 
 
-def phase_probe() -> dict:
+def phase_probe(b7_instances: dict) -> dict:
+    """P2: every instance against one plain result per switch set, the
+    seven timed variants, the ablation set at B7's headline window beside
+    phase 12's split of B7 there (b7_instances: phase 12's instances),
+    and the full variant at full size against its plain version."""
     err = 0
     ncols = 256
     meta, prev = colband_probe.probe_inputs(1, ncols, "cuda")
@@ -1813,28 +1824,52 @@ def phase_probe() -> dict:
     meta[0, 2::3] = 40
     prev = prev + torch.arange(4, dtype=torch.int32, device="cuda")[:, None]
     for name, _RW, switches in colband_probe.VARIANTS[:5]:
-        got, state = colband_probe.colband_probe_cuda(
-            meta, prev, 384, ncols, return_state=True, **switches)
         ref, ref_state = colband_probe.colband_probe_torch(
             meta, prev, 384, ncols, return_state=True, **switches)
-        e = max(int((got - ref).abs().max()),
-                int((state.to(torch.int64) - ref_state).abs().max()))
-        err = max(err, e)
-        print(f"  {name}: RW=384 pairs=128 columns={ncols} max_abs_err={e} "
-              "(outputs, final H, F and ring)")
-        if not (torch.equal(got, ref) and torch.equal(state, ref_state)):
-            raise AssertionError(f"probe {name}: instance != plain version")
+        for rows in cb.COLBAND_ROWS:
+            before = colband_probe.launches_rows[rows]
+            got, state = colband_probe.colband_probe_cuda(
+                meta, prev, 384, ncols, return_state=True, rows=rows,
+                **switches)
+            if colband_probe.launches_rows[rows] != before + 1:
+                raise AssertionError(f"probe {name}: no R={rows} launch")
+            e = max(int((got - ref).abs().max()),
+                    int((state.to(torch.int64) - ref_state).abs().max()))
+            err = max(err, e)
+            print(f"  {name}: R={rows} RW=384 pairs=128 columns={ncols} "
+                  f"max_abs_err={e} (outputs, final H, F and ring)")
+            if not (torch.equal(got, ref) and torch.equal(state, ref_state)):
+                raise AssertionError(f"probe {name}, R={rows}: instance != "
+                                     "plain version")
 
     G, ncols = 8, 2048
     reset_counts()
-    results = {}
-    for name, RW, switches in colband_probe.VARIANTS:
-        results[name] = colband_probe.run_variant(name, RW, G, ncols,
-                                                  rounds=3, **switches)
+    ns = {}
+    for variants, g in ((colband_probe.VARIANTS, G),
+                        (colband_probe.ABLATIONS, colband_probe.ABLATION_G)):
+        part = {name: colband_probe.run_variant(name, RW, g, ncols, rounds=3,
+                                                **switches)[0]
+                for name, RW, switches in variants}
+        full = part[variants[0][0]]
+        for name, RW, _switches in variants:
+            print(f"    {name}: RW {RW} (R={colband_probe.probe_rows(RW)}), "
+                  f"G {g}: {part[name]:.3f} ns per column, "
+                  f"{part[name] / full:.4f} of the full variant")
+        ns[g] = part
     n_launches = colband_probe.launches
-    full = results["full (chain fused)"][0]
-    for name, (ns, _g) in results.items():
-        print(f"    {name}: {ns / full:.4f} of the full variant")
+    by_rows = {r: n for r, n in colband_probe.launches_rows.items() if n}
+    if set(by_rows) != {colband_probe.probe_rows(RW) for _name, RW, _sw in
+                        colband_probe.VARIANTS + colband_probe.ABLATIONS}:
+        raise AssertionError(f"probe launches by R {by_rows}")
+    print(f"  {n_launches} timed launches, by R: {by_rows}")
+    RW = colband_probe.ABLATION_RW
+    b7 = b7_instances.get(colband_probe.probe_rows(RW))
+    if b7 is None or b7["RW"] != RW:
+        raise AssertionError(f"phase 12 split no B7 instance at RW {RW}")
+    print(f"    beside B7 R={b7['split']['rows']} at RW {RW} (phase 12): "
+          f"P1 {b7['p1_ns_per_col']:.3f} ns per column; its ", end="")
+    colband_bench.print_split(b7["split"])
+    full = ns[G][colband_probe.VARIANTS[0][0]]
     RW = colband_probe.VARIANTS[0][1]
     meta, prev = colband_probe.probe_inputs(G, ncols, "cuda")
     got = colband_probe.colband_probe_cuda(meta, prev, RW, ncols)
@@ -1847,9 +1882,10 @@ def phase_probe() -> dict:
         raise AssertionError("probe, full size: instance != plain version")
     ms = full * G * ncols / 1e6
     bound_ms, bound_by = probe_bound(G * colband_probe.LN, RW, ncols, True)
-    print(f"  full variant at RW={RW}, {G * colband_probe.LN} pairs, {ncols} "
-          f"columns: {ms:.3f} ms a launch, plain version {plain_ms:.3f} ms, "
-          f"equal; bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"  full variant at RW={RW} (R={colband_probe.probe_rows(RW)}), "
+          f"{G * colband_probe.LN} pairs, {ncols} columns: {ms:.3f} ms a "
+          f"launch, plain version {plain_ms:.3f} ms, equal; bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
     return {"launches": n_launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -2592,7 +2628,7 @@ def main() -> int:
     with Phase("12b headline set with colband at bw 255 and 1000"):
         cb_bands = phase_colband_bands(head["encoded"])
     with Phase("13 colband cost probe"):
-        probe = phase_probe()
+        probe = phase_probe(cb_head["instances"])
     with Phase("14 wave-interleave probe (P3)"):
         waves = phase_wave_probe(rng)
     with Phase("15 skewed-frame probe (P4)"):

@@ -452,6 +452,27 @@ def test_probe_cuda_wrapper_checks_its_inputs():
     assert colband_probe.launches == 0
 
 
+def test_probe_cuda_wrapper_takes_the_rows_of_colband_rows():
+    """`rows=None` takes the R that `colband_rows` gives B7 at the window
+    (R = 8 at the original's RW 1568, R = 4 at 1536, R = 2 at 768 and
+    384); an R whose block (RW / R row threads and the chain warp) passes
+    its instance's launch bound is refused with ValueError before the
+    device check, and one that fits reaches it."""
+    for rw in range(8, 4097, 8):
+        assert colband_probe.probe_rows(rw) == tcb.colband_rows(rw), rw
+    assert [colband_probe.probe_rows(rw) for rw in (384, 768, 1536, 1568)] \
+        == [2, 2, 4, 8]
+    assert [colband_probe.probe_rows(rw, r) for rw, r in
+            ((1984, 2), (1536, 4), (4096, 8), (1568, 8))] == [2, 4, 8, 8]
+    meta, prev = colband_probe.probe_inputs(1, 64, "cpu")
+    for rw, rows in ((1992, 2), (2048, 2), (1544, 4), (1568, 4), (64, 3)):
+        with pytest.raises(ValueError, match="rows a thread"):
+            colband_probe.colband_probe_cuda(meta, prev, rw, 64, rows=rows)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        colband_probe.colband_probe_cuda(meta, prev, 1536, 64, rows=4)
+    assert colband_probe.launches == 0
+
+
 def test_bench_harness_stages_a_bucket(rng):
     """P1's staging: the scalars, wire and shapes the kernel takes, and
     the column count its slope divides by."""

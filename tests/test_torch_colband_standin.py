@@ -37,6 +37,7 @@ from agatha_tpu_torch.ops import colband as cb
 from agatha_tpu_torch.ops import colsweep as cs
 from agatha_tpu_torch.ops import kernel as tk
 from agatha_tpu_torch.ops.packing import encode_padded
+from agatha_tpu_torch.probes import colband_probe
 
 from .conftest import mutate, random_seq
 from .test_torch_antidiag_standin import CSRC, compile_standin
@@ -85,6 +86,44 @@ extern "C" int run(const void* scal, const void* tcodes, const void* qfwd,
   }
   return 0;
 }
+// The probe instance the launcher picks for these switches, one block
+// per pair; 1 if the shapes are out of its range.
+extern "C" int probe(const void* meta, const void* prev, void* out,
+                     void* state, int n, int RW, int ncols, int with_chain,
+                     int n_prefix, int with_ring, int rows) {
+  ProbeParams p;
+  if (!probe_params(p, meta, prev, out, state, n, RW, ncols, n_prefix,
+                    rows))
+    return 1;
+  const ProbeKernel kernel =
+      probe_instance(rows, with_chain != 0, with_ring != 0, n_prefix < 0);
+  std::vector<int> dyn(probe_smem_ints(p));
+  g_dyn = dyn.data();
+  for (int b = 0; b < n; ++b) {
+    std::fill(dyn.begin(), dyn.end(), 0x5A5A5A5A);
+    run_block(b, p.nbpad + 32, [&] { kernel(p); });
+  }
+  return 0;
+}
+// The probe's segment chain (probe_segment) by one warp over n_seg
+// segments of 16 ring entries, as probe_kernel's chain warp takes them
+// (segment s at diagonal 16 s - 8); carry holds (ms, mr, mq, term, diags)
+// after each.
+extern "C" void probe_chain(const int* seg, int n_seg, int* carry) {
+  run_block(0, 32, [&] {
+    const int lane = threadIdx.x & 31;
+    ProbeCarry c = {0, 0, 0, 0, 0};
+    for (int s = 0; s < n_seg; ++s) {
+      probe_segment(c, lane < 16 ? seg[16 * s + lane] : INT_MIN,
+                    16 * s - 8);
+      if (lane == 0) {
+        int* const o = carry + 5 * s;
+        o[0] = c.ms; o[1] = c.mr; o[2] = c.mq; o[3] = c.term;
+        o[4] = c.diags;
+      }
+    }
+  });
+}
 // One warp's chain_round over `diag` (the per-diagonal maxima of
 // diagonals 0 .. n - 1) in a ring of rs entries, in rounds of at most
 // `step` diagonals; out is [score, query_end, target_end, diagonals].
@@ -122,6 +161,10 @@ def standin(tmp_path_factory):
     lib.run.restype = ci
     lib.chain.argtypes = [vp] + [ci] * 8 + [vp]
     lib.chain.restype = None
+    lib.probe.argtypes = [vp] * 4 + [ci] * 7
+    lib.probe.restype = ci
+    lib.probe_chain.argtypes = [vp, ci, vp]
+    lib.probe_chain.restype = None
     return lib
 
 
@@ -423,3 +466,130 @@ def test_colband_standin_chain_round(standin, case, step):
                                 gate[1], gate[2], cfg)[0].numpy()
     assert got.tolist() == ref.tolist()
     assert got[3] == (drop_at + 1 if drop_at is not None else end_p)
+
+
+# --- the cost probe P2: csrc/colband.cu probe_kernel ---------------------
+
+PROBE_SWITCHES = {
+    "full": {}, "no-chain": {"with_chain": False},
+    "window-8": {"n_prefix": 3}, "no-ring": {"with_ring": False},
+    "bare": {"n_prefix": 1, "with_ring": False, "with_chain": False},
+}
+# windows of one row warp (at every R) to 12 (R = 2 at RW 768, where
+# rows pass the placeholder mask's upper end); ragged column counts: a
+# whole pair, one ending inside a group, one at a group's end, one empty
+PROBE_RWS = (64, 200, 384, 768)
+PROBE_NCOLS = 64
+PROBE_META = np.array([[64, 51, 40, 0], [PROBE_NCOLS] * 4], np.int32)
+PROBE_PREV = (np.arange(4, dtype=np.int32)[:, None] * 7
+              + np.arange(4, dtype=np.int32)[None, :] * 1001)
+
+
+def run_probe(lib, meta, prev, RW, ncols, rows, *, with_chain=True,
+              n_prefix=None, with_ring=True):
+    """The probe instance's (4, N) output and (3 RW + 16, N) final state
+    on the CPU."""
+    n = meta.shape[1]
+    out = np.full((4, n), -7, np.int32)
+    state = np.full((3 * RW + 16, n), -7, np.int32)
+    assert lib.probe(meta.ctypes.data, prev.ctypes.data, out.ctypes.data,
+                     state.ctypes.data, n, RW, ncols, int(with_chain),
+                     colband_probe.instance_prefix(RW, n_prefix),
+                     int(with_ring), rows) == 0
+    return out, state
+
+
+_PROBE_REFS: dict = {}
+
+
+def _probe_reference(variant, RW):
+    if (variant, RW) not in _PROBE_REFS:
+        out, state = colband_probe.colband_probe_torch(
+            torch.from_numpy(PROBE_META), torch.from_numpy(PROBE_PREV), RW,
+            PROBE_NCOLS, return_state=True, **PROBE_SWITCHES[variant])
+        _PROBE_REFS[variant, RW] = out.numpy(), state.numpy()
+    return _PROBE_REFS[variant, RW]
+
+
+@pytest.mark.parametrize("variant", list(PROBE_SWITCHES))
+def test_colband_standin_probe_equals_plain(standin, variant, rows):
+    """P2's instance of R rows a thread under each switch set (the one
+    the launcher's probe_instance picks) == colband_probe_torch: the
+    four outputs and the final H, F and ring (every entry below the last
+    group's 16 g reset, as the plain version's shifts drop them), at
+    windows of one to 12 row warps, with ragged column counts."""
+    switches = PROBE_SWITCHES[variant]
+    for RW in PROBE_RWS:
+        got, state = run_probe(standin, PROBE_META, PROBE_PREV, RW,
+                               PROBE_NCOLS, rows, **switches)
+        ref, ref_state = _probe_reference(variant, RW)
+        assert np.array_equal(got, ref), (RW, got, ref)
+        bad = np.nonzero((state != ref_state).any(axis=1))[0]
+        assert bad.size == 0, (RW, bad[:8])
+
+
+def test_colband_standin_probe_launch_bound_matches_the_wrapper(standin,
+                                                                rows):
+    """csrc/colband.cu's probe_params admits a window of RW rows to the
+    instance of R rows a thread exactly when the wrapper's `probe_rows`
+    does (n 0: nothing runs)."""
+    z = np.zeros(8, np.int32)
+    for RW in range(8, 4097, 8):
+        ok = standin.probe(z.ctypes.data, z.ctypes.data, z.ctypes.data,
+                           None, 0, RW, 8, 1, -1, 1, rows) == 0
+        try:
+            want = colband_probe.probe_rows(RW, rows) == rows
+        except ValueError:
+            want = False
+        assert ok == want, RW
+
+
+def _probe_segments(rng, n_seg, drop_at=None, ties=False, unwritten=None):
+    """n_seg segments of 16 ring entries (th << 16) + tr along the main
+    diagonal (tr = d // 2 for diagonal d = 16 s - 8 + l): scores that
+    climb with noise well inside the probe's Z, with `ties` runs equal
+    to the best so far, a drop past Z at `drop_at`, and a never-written
+    entry (INT32_MIN) at each index in `unwritten`: the probe's chain
+    takes one as a drop while its best is still at target row 0, as in
+    its first group."""
+    n = 16 * n_seg
+    d = np.arange(n, dtype=np.int64) - 8
+    th = 5 + (d * 3) // 5 - rng.integers(0, 6, n)
+    if ties:
+        for k in rng.choice(np.arange(20, n - 8), 6, replace=False):
+            th[k:k + 4] = th[:k].max() + (7 if k % 2 else 0)
+    if drop_at is not None:
+        th[drop_at] = th[:drop_at].max() - (colband_probe.Z + 60)
+    x = (th << 16) + np.maximum(d, 0) // 2
+    x[list(unwritten or ())] = -(1 << 31)
+    return x.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", [
+    ("climb", None, False, None), ("ties", None, True, None),
+    ("drop-lane0", 16 * 5, False, None),
+    ("drop-lane15", 16 * 5 + 15, False, None),
+    ("drop-lane7-ties", 16 * 6 + 7, True, None),
+    ("unwritten", None, True, (9, 16 * 7 + 9)),
+], ids=lambda c: c[0])
+def test_colband_standin_probe_segment_chain(standin, case):
+    """The chain warp's probe_segment over 12 segments against the plain
+    `_vchain`, carry by carry: the first-wins running argmax seeded with
+    the carry (ties), a Z-drop candidate at a segment's first, last and a
+    middle row, never-written entries, and the carried `term` that makes
+    every later row a candidate."""
+    name, drop_at, ties, unwritten = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    n_seg = 12
+    seg = _probe_segments(rng, n_seg, drop_at, ties, unwritten)
+    got = np.zeros((n_seg, 5), np.int32)
+    standin.probe_chain(seg.ctypes.data, n_seg, got.ctypes.data)
+    z0 = torch.zeros((1, 1), dtype=torch.int32)
+    carry = (z0, z0, z0, z0, z0)
+    for s in range(n_seg):
+        ring = torch.from_numpy(seg[16 * s:16 * s + 16].copy())[:, None]
+        carry = colband_probe._vchain(ring, 16 * s - 8, carry)
+        want = [int(v) for v in carry]
+        assert got[s].tolist() == want, (s, got[s], want)
+    first = min([drop_at or 16 * n_seg, *(unwritten or ())]) // 16
+    assert got[:, 3].tolist() == [int(s >= first) for s in range(n_seg)]

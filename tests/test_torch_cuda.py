@@ -633,19 +633,22 @@ PROBE_VARIANTS = {
 
 @pytest.mark.parametrize("variant", list(PROBE_VARIANTS))
 @pytest.mark.parametrize("RW", [384, 160])
-def test_probe_instances_equal_plain(cuda, variant, RW):
-    """P2: each probe instance equals colband_probe_torch, the four
-    outputs and the final H, F and ring, with ragged column counts."""
+@pytest.mark.parametrize("rows", colband.COLBAND_ROWS)
+def test_probe_instances_equal_plain(cuda, variant, RW, rows):
+    """P2: each probe instance (R rows a thread, each switch set) equals
+    colband_probe_torch, the four outputs and the final H, F and ring,
+    with ragged column counts."""
     switches = PROBE_VARIANTS[variant]
     ncols = 256
     meta, prev = colband_probe.probe_inputs(1, ncols, cuda)
     meta[0, 1::3] = ncols - 13
     meta[0, 2::3] = 40
     prev = prev + torch.arange(4, dtype=torch.int32, device=cuda)[:, None]
-    before = colband_probe.launches
+    before = colband_probe.launches, colband_probe.launches_rows[rows]
     out, state = colband_probe.colband_probe_cuda(
-        meta, prev, RW, ncols, return_state=True, **switches)
-    assert colband_probe.launches == before + 1
+        meta, prev, RW, ncols, return_state=True, rows=rows, **switches)
+    assert (colband_probe.launches, colband_probe.launches_rows[rows]) == \
+        (before[0] + 1, before[1] + 1)
     ref, ref_state = colband_probe.colband_probe_torch(
         meta, prev, RW, ncols, return_state=True, **switches)
     assert torch.equal(out, ref)
