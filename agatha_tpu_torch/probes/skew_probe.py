@@ -19,11 +19,13 @@ antidiagonal (see `substep_probe`):
 Two implementations:
 
 * `skew_probe_torch`: the plain version (any device);
-* `skew_probe_cuda`: the instances of `csrc/substep_probe.cu`, one block
-  per pair with one thread per lane (W 1024 current, 896 skewed), one
-  `__syncthreads` per substep: the mapping of the antidiagonal kernel
-  (B1/B2, `csrc/antidiag.cu`), so `current`'s time per substep is read
-  beside B2's per diagonal.
+* `skew_probe_cuda`: the instances of `csrc/substep_probe.cu` on the
+  mapping of the antidiagonal kernel (B1/B2, `csrc/antidiag.cu`): one
+  block per pair with one thread per 8-lane tile row (128 threads at W
+  1024 current, 112 at 896 skewed, in 4 warps), an 8x8 tile of lanes x
+  substeps in registers a step, one `__syncthreads` per packed
+  diagonal, so `current`'s time per substep is read beside B2's per
+  diagonal, and the frames' and masks' costs beside a B2 step's.
 
     python -m agatha_tpu_torch.probes.skew_probe [G] [DIAGS]
 

@@ -21,10 +21,13 @@ state starts as iotas).  They differ in how a substep is framed:
   (diags) at the end.
 
 `make_current` is `make_waves` with one wave, so one plain function
-covers all five factories.  Pairs are rows: the original's programs of
-B pairs share nothing but their shape (the row max is per pair, every
-program initialises the same scratch), so G programs of B rows are one
-(G * B, W) problem here.  `(h_new << 16) + r` wraps as int32 does in
+covers all five factories.  The CUDA instances (`launch`) compute the
+same lanes x substeps grid as the tile kernel computes the DP's: 8x8
+tiles of (lane, substep) cells, one thread per tile row, one tile a
+step (`csrc/substep_probe.cu` says why that order is exact).  Pairs are
+rows: the original's programs of B pairs share nothing but their shape
+(the row max is per pair, every program initialises the same scratch),
+so G programs of B rows are one (G * B, W) problem here.  `(h_new << 16) + r` wraps as int32 does in
 XLA (H drifts far below MINUS_INF2 over thousands of substeps).
 """
 
@@ -365,6 +368,12 @@ def check_args(meta, W: int, n_diags: int, n_waves: int, skewed: bool,
                ival: bool) -> None:
     """Raise on anything the CUDA instances do not take."""
     _check(n_waves, skewed, ival)
+    if W % 32 or W < 32 or W * n_waves > 1024:
+        raise ValueError(f"W={W} must be a multiple of 32, and W x n_waves "
+                         "at most 1024 (one thread per tile row of 8 "
+                         "lanes, at most 128)")
+    if n_diags < 0:
+        raise ValueError(f"n_diags={n_diags} must be >= 0")
     if (meta.dim() != 2 or meta.shape[1] != 2 or meta.dtype != torch.int32
             or not meta.is_contiguous()):
         raise ValueError("meta must be a contiguous (N, 2) int32 tensor, "
@@ -372,18 +381,14 @@ def check_args(meta, W: int, n_diags: int, n_waves: int, skewed: bool,
     if meta.device.type != "cuda":
         raise ValueError(f"the CUDA probe needs CUDA tensors, got "
                          f"{meta.device}")
-    if W % 32 or W < 32 or W * n_waves > 1024:
-        raise ValueError(f"W={W} must be a multiple of 32, and W x n_waves "
-                         "at most 1024 (one thread per lane)")
-    if n_diags < 0:
-        raise ValueError(f"n_diags={n_diags} must be >= 0")
 
 
 def launch(meta, W: int, n_diags: int, *, n_waves: int = 1,
            skewed: bool = False, ival: bool = False,
            return_state: bool = False):
-    """Launch one CUDA instance on the current stream (the caller checked
-    its arguments with `check_args`): (N, 4) int32, and with
+    """Launch one CUDA instance on the current stream, one block of W / 8
+    threads (rounded up to a warp) per pair (the caller checked its
+    arguments with `check_args`): (N, 4) int32, and with
     ``return_state`` the final state as `plain` returns it."""
     n = meta.shape[0]
     out = torch.empty((n, 4), dtype=torch.int32, device=meta.device)
@@ -449,9 +454,10 @@ def card_report(ms: float, meta, W: int, n_diags: int, indent: int, *,
                         ival=ival)
     block_ns = ms * 1e6 / (8 * n_diags * max(1, -(-n // resident)))
     gcups = cells / (ms * 1e6)
-    print(f"{'':{indent}s} card: {ms:.4f} ms a launch, {n} blocks of {W} "
-          f"threads, {resident} resident at once: {block_ns:.2f} ns per "
-          f"substep per block, {gcups:.3f} GCUPS-equivalent ({cells} "
-          "C-true cells)", flush=True)
+    threads = (W // 8 + 31) // 32 * 32  # a tile row each, whole warps
+    print(f"{'':{indent}s} card: {ms:.4f} ms a launch, {n} blocks of "
+          f"{threads} threads ({W} lanes), {resident} resident at once: "
+          f"{block_ns:.2f} ns per substep per block, {gcups:.3f} "
+          f"GCUPS-equivalent ({cells} C-true cells)", flush=True)
     return {"ms": ms, "block_ns": block_ns, "gcups": gcups, "cells": cells,
             "blocks": n, "resident": resident}

@@ -12,10 +12,12 @@ Two implementations:
 
 * `wave_probe_torch`: the plain version (any device);
 * `wave_probe_cuda`: the instances of `csrc/substep_probe.cu` for
-  n_waves 1, 2 and 4.  One block per pair with one thread per lane; a
-  thread owns lane r of every wave, and a substep runs all waves'
-  neighbour exchanges and n_waves independent row-max reductions behind
-  one `__syncthreads`, so the waves' chains overlap inside the block.
+  n_waves 1, 2 and 4, on the tile kernel's layout: one block per pair
+  with one thread per 8-lane tile row (32 threads at W 256, one warp:
+  no block barrier), an 8x8 tile of lanes x substeps in registers a
+  step.  A thread owns tile row pr of every wave, so a step holds
+  n_waves independent tiles: whether a second tile per thread hides
+  the step's latency, as it would B2's.
 
 On the card B sets only the grid: the original's (B, W) program is B
 pairs, here B blocks, so a (64, 256) program at half the programs is

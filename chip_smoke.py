@@ -105,20 +105,23 @@ exit):
     pairs), each in ns per column and as a share of the full variant,
     beside phase 12's clock64 split of B7 at that R and RW, and the full
     variant at full size against its plain version, with its bound;
-14. the wave-interleave probe (P3): each instance (1, 2, 4 waves)
-    against `wave_probe_torch` exactly (outputs and the whole final
-    state) on 64 ragged pairs over 20 packed diagonals (the feed phase
-    wraps), the original's five timed variants (G 32, 39 packed
-    diagonals: its lines and ratio lines, then per-block ns per substep
-    against the resident blocks, and GCUPS-equivalent), then the base
-    variant at full size (4096 ragged pairs) against its plain version;
-15. the skewed-frame probe (P4): each instance at its full width (1024 /
-    896 threads) against `skew_probe_torch` exactly on 16 ragged pairs,
+14. the wave-interleave probe (P3; its instances' ptxas registers and
+    spills are among phase 1's lines): each instance (1, 2, 4 waves) against `wave_probe_torch`
+    exactly (outputs and the whole final state) on 64 ragged pairs over
+    20 packed diagonals (the feed phase wraps), the original's five
+    timed variants (G 32, 39 packed diagonals: its lines and ratio
+    lines, then per-block ns per substep against the resident blocks,
+    and GCUPS-equivalent), then the base
+    variant at full size (4096 ragged pairs) against its plain version,
+    with its bound and the contract's floor;
+15. the skewed-frame probe (P4; ptxas lines as for P3): each instance
+    at its full width (W 1024 / 896: 128 / 112
+    threads) against `skew_probe_torch` exactly on 16 ragged pairs,
     the original's four timed variants at G 16 x 2400 packed diagonals
     (128 blocks, ragged 11-13 kb meta), `current`'s per-block ns per
     substep beside B2's ns per diagonal from phase 4, then all four at
     128 blocks and full width over 150 packed diagonals against their
-    plain versions, with both times;
+    plain versions, with both times, the bound and the contract's floor;
 16. the longest pair of the ONT workload (bw 2001, rlen past 65535)
     against the plain version, which a host process started before
     phase 0 runs on the CPU beside phases 0-15;
@@ -175,7 +178,9 @@ diagonals each pair swept and 15 per swept diagonal, so that the two
 rows compare like with like; the probe's counts its placeholder masks'
 cells and 15 per chain row; P3's and P4's count the C-true cells of
 their masks (the plain version's mask functions) and 15 per live
-pair-wave substep, on the inputs timed.
+pair-wave substep, on the inputs timed, and beside that bound phases 14
+and 15 print the contract's floor on their lines: 12 operations a
+lane-substep, since the contract runs every lane on every substep.
 
 The last three lines are the card's `nvidia-smi` line, one JSON object
 describing each kernel of the path (``launches_multi``: its launches in
@@ -259,6 +264,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # E (e - ge, max, temp - goe shared with F: 2), (H << 16) + r (one
 # IMAD: 1), the diagonal max (1).
 OPS_PER_CELL = 12
+# the probes P3 / P4's contract floor: every lane runs every substep,
+# whatever its mask (outside it H, E and F still move), so at least the
+# recurrence's 12 operations a lane-substep
+OPS_PER_LANE_SUBSTEP = OPS_PER_CELL
 # per swept diagonal of the chain: gate (4), unpack (2), q end (1),
 # best test (1), Z-drop tests and gap (7)
 OPS_PER_DIAG = 15
@@ -1922,7 +1931,8 @@ def time_substep(name, instance, plain, meta, W, n_diags, **switches):
     """An instance at full width against its plain version (outputs and
     state), both timed on the same inputs, with the bound: 12 operations
     per C-true cell (counted by the plain version's masks) and 15 per
-    live pair-wave substep, or the bytes of meta and out."""
+    live pair-wave substep, or the bytes of meta and out; and the
+    contract's floor, 12 operations a lane-substep."""
     err = compare_substep(name, instance, plain)
     ms = cuda_ms(instance, reps=5)
     torch.cuda.synchronize()
@@ -1934,9 +1944,14 @@ def time_substep(name, instance, plain, meta, W, n_diags, **switches):
     live = int(ref[:, 3].to(torch.int64).sum())
     bound_ms, bound_by = bound(4 * (meta.numel() + ref.numel()),
                                OPS_PER_CELL * cells + OPS_PER_DIAG * live)
+    lane_substeps = (meta.shape[0] * W * switches.get("n_waves", 1) * 8
+                     * n_diags)
+    floor_ms = OPS_PER_LANE_SUBSTEP * lane_substeps / INT32_OPS_PER_S * 1e3
     print(f"    {ms:.4f} ms a launch, plain version {plain_ms:.3f} ms, "
           f"bound {bound_ms:.6f} ms ({bound_by}; {cells} C-true cells, "
-          f"{live} live pair-wave substeps)")
+          f"{live} live pair-wave substeps), contract floor "
+          f"{floor_ms:.6f} ms ({lane_substeps} lane-substeps; "
+          f"{ms / floor_ms:.2f}x)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
