@@ -30,6 +30,11 @@ runs the score path, then the native re-DP engine
 ``aligns_per_batch`` pairs, with a bounded window of chunks dispatched
 and not yet collected (the command line's ``--stream``, `cli`).
 
+Each step records a span of `agatha_tpu_torch.trace` when tracing is on
+(encode, dispatch with validate / pack / stage / launch, collect with
+its waits for the card and for the decode worker, the worker's decode);
+off, a step pays one flag check.
+
 The engine dispatches over one list of slots (`_slots`): every local
 CUDA device when `EngineConfig.use_all_devices` is on and the engine's
 device is CUDA, else the engine's device alone; a list pinned on
@@ -58,6 +63,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from agatha_tpu_torch import trace
 from agatha_tpu_torch.config import AlignConfig, EngineConfig
 from agatha_tpu_torch.io.fasta import SeqPair
 from agatha_tpu_torch.ops.colband import (
@@ -174,6 +180,10 @@ class AlignEngine:
         Uses the native C++ batch encoder when it builds; falls back to
         NumPy per pair.
         """
+        with trace.span("encode", call=trace.new_call()):
+            return self._encode(pairs)
+
+    def _encode(self, pairs):
         from agatha_tpu_torch import native
 
         if native.available() and pairs:
@@ -307,7 +317,6 @@ class AlignEngine:
             z = np.zeros(0, np.int32)
             return AlignmentResult(z, z, z, z,
                                    cigars=[] if traceback else None)
-        self._validate(encoded)
         return self._finish(self._start(encoded, traceback,
                                         per_bucket_times), traceback)
 
@@ -316,22 +325,29 @@ class AlignEngine:
 
     def _start(self, encoded, traceback: bool,
                per_bucket_times: bool = False) -> tuple:
-        """Dispatch one validated batch; returns what `_finish` needs.
+        """Validate and dispatch one batch; returns what `_finish`
+        needs.
 
         Everything a batch's collect reads (its buckets, outputs,
-        routes and timings) travels in this tuple, never on the engine,
-        so several batches can be in flight at once (`align_stream`).
+        routes, timings and trace call id) travels in this tuple, never
+        on the engine, so several batches can be in flight at once
+        (`align_stream`).
         """
         device_tb = traceback and self.engine_cfg.traceback_mode == "device"
-        t0 = time.perf_counter()
-        return (encoded, t0, *self._dispatch(encoded, per_bucket_times,
-                                             device_tb))
+        call = trace.new_call()
+        with trace.span("dispatch", call=call):
+            with trace.span("validate"):
+                self._validate(encoded)
+            t0 = time.perf_counter()
+            return (encoded, t0, call,
+                    *self._dispatch(encoded, per_bucket_times, device_tb))
 
     def _finish(self, started: tuple, traceback: bool) -> AlignmentResult:
         """Collect a batch `_start` dispatched; in host traceback mode
         then run the native re-DP, after ``kernel_ms`` was taken."""
-        encoded, t0, buckets, outs, routes, timings = started
-        res = self._collect(encoded, buckets, outs, routes, timings, t0)
+        encoded, t0, call, buckets, outs, routes, timings = started
+        with trace.span("collect", call=call):
+            res = self._collect(encoded, buckets, outs, routes, timings, t0)
         if traceback and res.cigars is None:
             res.cigars = traceback_all(
                 encoded, res.query_ends, res.target_ends, res.scores,
@@ -366,7 +382,6 @@ class AlignEngine:
         while chunk := list(itertools.islice(it, chunk_pairs)):
             encoded = (chunk if isinstance(chunk[0], tuple)
                        else self.encode_pairs(chunk))
-            self._validate(encoded)
             window.append(self._start(encoded, traceback))
             if len(window) >= max_in_flight:
                 yield self._finish(window.popleft(), traceback)
@@ -395,7 +410,7 @@ class AlignEngine:
                 "reference: end positions alias mod 65536 and scores "
                 ">= 32768 corrupt the max tracking",
                 RuntimeWarning,
-                stacklevel=3,
+                stacklevel=4,
             )
 
     def _chunk_lane_mapped(self, lens: np.ndarray) -> bool:
@@ -487,13 +502,22 @@ class AlignEngine:
                 yield from (self._split_for_flags(b, n_parts=len(devs))
                             if device_tb else (b,))
 
-        for b in subbuckets():
+        def staged(arrays, dev):
+            with trace.span("stage"):
+                return host_to_device(arrays, dev)
+
+        packed = subbuckets()
+        while True:
+            with trace.span("pack"):
+                b = next(packed, None)
+            if b is None:
+                break
             dev = devs[len(outs) % len(devs)]
             span = (dev,)
             with on_device(dev):
                 if device_tb:
                     routes.append("walk")
-                    args = host_to_device((b.meta, b.tcodes, b.qfwd), dev)
+                    args = staged((b.meta, b.tcodes, b.qfwd), dev)
                     planes = flag_planes_needed(b.meta, self.cfg)
 
                     def run():
@@ -501,7 +525,7 @@ class AlignEngine:
                                                       planes=planes)
                 elif self._colsweep_ok(b):
                     routes.append("colsweep")
-                    args = host_to_device((b.meta, b.tcodes, b.qfwd), dev)
+                    args = staged((b.meta, b.tcodes, b.qfwd), dev)
                     shapes = colsweep_shapes(b.meta, b.tcodes, b.qfwd,
                                              self.cfg)
 
@@ -510,7 +534,7 @@ class AlignEngine:
                                                      shapes=shapes)
                 elif self._colband_ok(b.meta):
                     routes.append("colband")
-                    *args, scalars = host_to_device(
+                    *args, scalars = staged(
                         (b.meta, b.tcodes, b.qfwd,
                          chain_scalars(b.meta, self.cfg)), dev)
                     cb_shapes = colband_shapes(b.meta, self.cfg)
@@ -524,22 +548,22 @@ class AlignEngine:
                     span = devs
                     unit = len(devs) * B_PAIRS
                     gb = -(-b.meta.shape[0] // unit) * unit
-                    shards = stage_shards(
-                        pad_rows(b.meta, gb, 1), pad_rows(b.tcodes, gb),
-                        pad_rows(b.qfwd, gb), devs)
+                    padded = (pad_rows(b.meta, gb, 1),
+                              pad_rows(b.tcodes, gb), pad_rows(b.qfwd, gb))
+                    with trace.span("stage"):
+                        shards = stage_shards(*padded, devs)
 
                     def run():
                         return align_shards(shards, self.cfg, devs)
                 else:
                     routes.append("anti")
-                    args = host_to_device((b.meta, b.tcodes, b.qfwd), dev)
+                    args = staged((b.meta, b.tcodes, b.qfwd), dev)
 
                     def run():
                         return align_bucket(*args, self.cfg)
-                if per_bucket_times:
-                    outs.append(self._timed(run, span, timings))
-                else:
-                    outs.append(run())
+                with trace.span("launch"):
+                    outs.append(self._timed(run, span, timings)
+                                if per_bucket_times else run())
             buckets.append(b)
         return buckets, outs, routes, timings
 
@@ -598,16 +622,20 @@ class AlignEngine:
             yield _Bucket(idx, b.meta[lo:hi], b.tcodes[lo:hi],
                           b.qfwd[lo:hi])
 
-    def _decode_words(self, words: np.ndarray) -> list[str]:
+    def _decode_words(self, words: np.ndarray,
+                      under: tuple = (None, None)) -> list[str]:
         """One bucket's move words -> CIGARs (native decoder, else the
-        NumPy one); runs on the collect path's worker thread."""
+        NumPy one); runs on the collect path's worker thread, its span
+        under the (call, parent) of `trace.current` on the collecting
+        thread."""
         from agatha_tpu_torch import native
 
-        cigars = native.moves_to_cigars_batch(
-            words, n_threads=self.engine_cfg.cpu_threads)
-        if cigars is None:
-            moves = decode_moves(words)
-            cigars = [moves_to_cigar(m) for m in moves]
+        with trace.span("decode", *under):
+            cigars = native.moves_to_cigars_batch(
+                words, n_threads=self.engine_cfg.cpu_threads)
+            if cigars is None:
+                moves = decode_moves(words)
+                cigars = [moves_to_cigar(m) for m in moves]
         return cigars
 
     def _collect(self, encoded, buckets, outs, routes, timings,
@@ -624,16 +652,21 @@ class AlignEngine:
         device_tb = bool(outs) and isinstance(outs[0], tuple)
         futs = []
         if device_tb:
+            under = trace.current()
             with ThreadPoolExecutor(max_workers=1) as pool:
                 rows = []
                 for out, words in outs:
-                    rows.append(out.cpu().numpy())
+                    with trace.span("collect.wait_card"):
+                        rows.append(out.cpu().numpy())
+                        host_words = words.cpu().numpy()
                     futs.append(pool.submit(self._decode_words,
-                                            words.cpu().numpy()))
-                decoded = [f.result() for f in futs]
+                                            host_words, under))
+                with trace.span("collect.wait_decode"):
+                    decoded = [f.result() for f in futs]
             all_out = np.concatenate(rows)
         else:
-            all_out = _gather_rows([p for o in outs for p in _parts(o)])
+            with trace.span("collect.wait_card"):
+                all_out = _gather_rows([p for o in outs for p in _parts(o)])
         # a bucket's ms: the longest of its spans, one a device
         bucket_ms = [
             max(s.elapsed_time(e) for s, e in t) if isinstance(t, list)

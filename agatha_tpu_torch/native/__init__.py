@@ -21,6 +21,8 @@ import subprocess
 
 import numpy as np
 
+from agatha_tpu_torch import trace
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "packer.cpp"),
          os.path.join(_DIR, "traceback.cpp")]
@@ -144,16 +146,17 @@ def encode_batch(
         blob_a = np.frombuffer(blob, np.uint8)
         if blob_a.size == 0:
             blob_a = np.zeros(1, np.uint8)
-        rc = lib.agatha_encode_batch(
-            _p8(blob_a),
-            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            _p8(opsa),
-            n,
-            _p8(out),
-            stride,
-            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.c_int32(n_threads),
-        )
+        with trace.span("encode.native"):
+            rc = lib.agatha_encode_batch(
+                _p8(blob_a),
+                offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                _p8(opsa),
+                n,
+                _p8(out),
+                stride,
+                lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                ctypes.c_int32(n_threads),
+            )
         if rc == 0:
             return out, lens
     # fallback

@@ -39,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from agatha_tpu_torch import trace
 from agatha_tpu_torch.config import AlignConfig
 from agatha_tpu_torch.constants import (
     INT32_MIN,
@@ -537,6 +538,10 @@ def _align_bucket_cuda(meta, tcodes, qfwd, cfg, force_strips, planes):
     )
     if err != 0:
         raise RuntimeError(f"antidiag kernel launch failed: CUDA error {err}")
+    if trace.on:
+        trace.count("fill.blocks", gb)
+        trace.count("fill.slots", launch_slots(
+            gb, _resident(cfg, wt, safe16, bool(planes), dev)))
     if planes:
         launches_flags += 1
         return out, flags
@@ -553,6 +558,34 @@ def occupancy(cfg: AlignConfig, wt: int, *, safe16: bool,
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n
+
+
+def launch_slots(blocks: int, resident: int) -> int:
+    """Block slots a launch holds: its waves, ceil(blocks / resident),
+    times the blocks resident on the whole card at once.
+
+    blocks / launch_slots is the launch's fill by its shape (the last
+    wave's empty slots count against it), not achieved occupancy: a
+    block that a Z-drop exit ends early frees its slot unseen.
+    """
+    if resident <= 0:
+        raise ValueError(f"resident blocks must be positive, got {resident}")
+    return -(-blocks // resident) * resident
+
+
+# Blocks resident on a card at once, by (wt, band, safe16, flags, device):
+# occupancy() times the card's SMs, queried once each.
+_resident_cache: dict[tuple, int] = {}
+
+
+def _resident(cfg: AlignConfig, wt: int, safe16: bool, emit: bool,
+              dev: int) -> int:
+    key = (wt, cfg.band_width, bool(safe16), emit, dev)
+    if key not in _resident_cache:
+        _resident_cache[key] = occupancy(
+            cfg, wt, safe16=safe16, emit_flags=emit, device=dev,
+        ) * torch.cuda.get_device_properties(dev).multi_processor_count
+    return _resident_cache[key]
 
 
 def align_bucket(

@@ -21,11 +21,13 @@ the register instance forced to the K rows a lane it takes and to the
 next instance up (K + 4), in turns (a, b, b, a), each ring held equal
 to the default instance's.
 
-It uses only the entry points every revision of the port has
-(`AlignEngine`, `ops.colsweep.colsweep_shapes`, `colsweep_sweep_cuda`,
-`colsweep_chain_cuda`, `probes.antidiag_cells`), so that it can time
-another revision's package in the same call: run it by path with
-`PYTHONPATH=<other tree>` first on the path.
+Besides `host_split`, which reads the engine's spans
+(`agatha_tpu_torch.trace`), it uses only the entry points every
+revision of the port has (`AlignEngine`, `ops.colsweep.colsweep_shapes`,
+`colsweep_sweep_cuda`, `colsweep_chain_cuda`, `probes.antidiag_cells`),
+so that it can time another revision's package that has the trace in
+the same call: run it by path with `PYTHONPATH=<other tree>` first on
+the path.
 """
 
 from __future__ import annotations
@@ -72,63 +74,40 @@ def graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 
 
 def host_split(engine, encoded, traceback: bool = False) -> dict:
-    """Host-clock ms of one warm align(), split by the engine's own steps.
+    """Host-clock ms of one warm align(), split by the engine's own
+    spans (`agatha_tpu_torch.trace`, on for the call).
 
-    Wraps them in place for one call: validation, bucketing and packing
-    (time spent inside iter_buckets), the pinned copies (host_to_device), the
-    kernel launches (align_bucket_colsweep, align_bucket_colband, or with
-    ``traceback`` align_bucket_traceback; no synchronisation) and
-    collect (the copies back, which wait for the card, the reorder and,
-    with ``traceback``, the CIGAR decode); "other" is the rest of the
-    wall.
+    Keys: validation ("validate"), bucketing and packing ("pack", each
+    step of the bucket generator), the pinned copies ("copy", the
+    "stage" spans), the kernel launches ("launch", every route's
+    launcher; no synchronisation) and "collect" (the copies back,
+    which wait for the card, the reorder and, with ``traceback``, the
+    CIGAR decode); "other" is the rest of the wall.  On a CUDA device
+    the card is synchronised before the call.  Tracing must be off on
+    entry: the split drains the records.
     """
-    import agatha_tpu_torch.engine as eng_mod
+    from agatha_tpu_torch import trace
 
-    acc = dict.fromkeys(("validate", "pack", "copy", "launch", "collect"),
-                        0.0)
-
-    def timed(key, fn):
-        def wrapped(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                acc[key] += time.perf_counter() - t
-        return wrapped
-
-    real_iter = engine.iter_buckets
-
-    def iter_timed(enc, **kw):
-        it = real_iter(enc, **kw)
-        while True:
-            t = time.perf_counter()
-            b = next(it, None)
-            acc["pack"] += time.perf_counter() - t
-            if b is None:
-                return
-            yield b
-
-    saved = (eng_mod.host_to_device, eng_mod.align_bucket_colsweep,
-             eng_mod.align_bucket_traceback, eng_mod.align_bucket_colband)
-    eng_mod.host_to_device = timed("copy", saved[0])
-    eng_mod.align_bucket_colsweep = timed("launch", saved[1])
-    eng_mod.align_bucket_traceback = timed("launch", saved[2])
-    eng_mod.align_bucket_colband = timed("launch", saved[3])
-    engine.iter_buckets = iter_timed
-    engine._validate = timed("validate", engine._validate)
-    engine._collect = timed("collect", engine._collect)
-    try:
+    if trace.on:
+        raise RuntimeError("host_split drains the port's trace: call it "
+                           "with tracing off")
+    if engine.device.type == "cuda":
         torch.cuda.synchronize()
+    trace.drain()
+    trace.enable()
+    try:
         t0 = time.perf_counter()
         engine.align(encoded, traceback=traceback)
         wall = time.perf_counter() - t0
     finally:
-        (eng_mod.host_to_device, eng_mod.align_bucket_colsweep,
-         eng_mod.align_bucket_traceback,
-         eng_mod.align_bucket_colband) = saved
-        for name in ("iter_buckets", "_validate", "_collect"):
-            delattr(engine, name)
-    split = {k: v * 1e3 for k, v in acc.items()}
+        trace.disable()
+    spans, _counts = trace.drain()
+    keys = {"validate": "validate", "pack": "pack", "stage": "copy",
+            "launch": "launch", "collect": "collect"}
+    split = dict.fromkeys(keys.values(), 0.0)
+    for sp in spans:
+        if sp.name in keys:
+            split[keys[sp.name]] += (sp.end_ns - sp.start_ns) * 1e-6
     split["other"] = wall * 1e3 - sum(split.values())
     split["wall"] = wall * 1e3
     return split

@@ -1,0 +1,282 @@
+"""The engine's spans and counters (`agatha_tpu_torch.trace`).
+
+Imports no jax, so the one `cuda` test runs on the card with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_trace.py
+
+The CPU tests trace `encode_pairs` + `align` on the plain kernels: every
+span under its parent, in its parent's time, with its batch's call id;
+the decode on the worker thread; nothing recorded and no profiler range
+opened with tracing off; the launch-fill arithmetic.
+"""
+
+import json
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from agatha_tpu_torch import AlignConfig, AlignEngine, EngineConfig, SeqPair
+from agatha_tpu_torch import trace
+from agatha_tpu_torch.ops import kernel
+from agatha_tpu_torch.probes.colsweep_cells import host_split
+
+torch.set_num_threads(1)
+
+CFG = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                  slice_width=3, z_threshold=400, band_width=60)
+# the device-traceback split at 1 MiB of flags puts 8 pairs a bucket
+TB = EngineConfig(tb_flag_bytes=1 << 20)
+
+PARENT = {
+    "encode": None, "encode.native": "encode",
+    "dispatch": None, "validate": "dispatch", "pack": "dispatch",
+    "stage": "dispatch", "launch": "dispatch",
+    "collect": None, "collect.wait_card": "collect",
+    "collect.wait_decode": "collect", "decode": "collect",
+}
+SCORE_SPANS = set(PARENT) - {"collect.wait_decode", "decode"}
+
+
+def _pairs(n=20, seed=3):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        q = "".join(rng.choice(list("ACGT"), int(rng.integers(60, 140))))
+        t = list(q)
+        for j in rng.integers(0, len(t), len(t) // 10):
+            t[j] = "ACGT"[int(rng.integers(0, 4))]
+        out.append(SeqPair(q, "".join(t), 0, 0))
+    return out
+
+
+@pytest.fixture
+def traced():
+    """Tracing on for the test, off and drained after it."""
+    trace.drain()
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        trace.drain()
+
+
+def _run(engine, pairs, traceback):
+    enc = engine.encode_pairs(pairs)
+    return engine.align(enc, traceback=traceback)
+
+
+def _check_tree(spans):
+    """Parents by name, a call id a batch, every child inside its
+    parent; returns the spans by name."""
+    by = {}
+    for s in spans:
+        by.setdefault(s.name, []).append(s)
+    main = threading.get_ident()
+    for s in spans:
+        assert s.parent == PARENT[s.name], s
+        assert s.start_ns <= s.end_ns
+        assert (s.thread == main) == (s.name != "decode"), s
+        if s.parent is None:
+            continue
+        # the parent span of the same call that holds it
+        holders = [p for p in by[s.parent] if p.call == s.call
+                   and p.start_ns <= s.start_ns and s.end_ns <= p.end_ns]
+        assert holders, f"{s} lies in no {s.parent} span of its call"
+    return by
+
+
+def test_score_path_spans(traced):
+    engine = AlignEngine(CFG, device="cpu")
+    res = _run(engine, _pairs(), traceback=False)
+    spans, counts = trace.drain()
+    by = _check_tree(spans)
+    assert set(by) == SCORE_SPANS
+    assert len(by["encode"]) == 1 and len(by["encode.native"]) == 2
+    (d,), (c,) = by["dispatch"], by["collect"]
+    assert d.call == c.call is not None
+    assert by["encode"][0].call != d.call
+    assert len(by["launch"]) == len(by["stage"]) == res.n_buckets
+    # one step of the bucket generator a bucket, and the one that ends it
+    assert len(by["pack"]) == res.n_buckets + 1
+    assert counts == {}  # no CUDA launch, no fill counter
+
+
+def test_device_traceback_spans(traced):
+    engine = AlignEngine(CFG, TB, device="cpu")
+    res = _run(engine, _pairs(), traceback=True)
+    spans, _counts = trace.drain()
+    by = _check_tree(spans)
+    assert set(by) == set(PARENT)
+    assert res.n_buckets > 1
+    assert len(by["decode"]) == len(by["collect.wait_card"]) == res.n_buckets
+    call = by["collect"][0].call
+    assert {s.call for s in by["decode"]} == {call}
+    assert by["dispatch"][0].call == call
+    # the worker's decodes all end before the wait for them does
+    (w,) = by["collect.wait_decode"]
+    assert max(s.end_ns for s in by["decode"]) <= w.end_ns
+
+
+def test_chunks_in_flight_keep_their_call_ids(traced):
+    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=8),
+                         device="cpu")
+    chunks = list(engine.align_stream(iter(_pairs(24)), max_in_flight=3))
+    spans, _counts = trace.drain()
+    _check_tree(spans)
+    dispatch = [s.call for s in spans if s.name == "dispatch"]
+    collect = [s.call for s in spans if s.name == "collect"]
+    assert len(chunks) == 3 and len(set(dispatch)) == 3
+    # every chunk is dispatched before the first is collected
+    assert collect == dispatch
+    first_collect = min(s.start_ns for s in spans if s.name == "collect")
+    assert all(s.end_ns <= first_collect for s in spans
+               if s.name == "dispatch")
+
+
+def test_off_records_nothing_and_opens_no_range(monkeypatch):
+    engine = AlignEngine(CFG, TB, device="cpu")
+    pairs = _pairs()
+    trace.drain()
+    trace.enable()
+    try:
+        on = [_run(engine, pairs, tb) for tb in (False, True)]
+    finally:
+        trace.disable()
+    assert trace.drain()[0]
+
+    def refuse(*_a, **_kw):
+        raise AssertionError("record_function entered with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    off = [_run(engine, pairs, tb) for tb in (False, True)]
+    assert trace.drain() == ([], {})
+    assert trace.new_call() is None and trace.current() == (None, None)
+    for a, b in zip(on, off):
+        for f in ("scores", "query_ends", "target_ends", "diags"):
+            assert np.array_equal(getattr(a, f), getattr(b, f))
+        assert a.cigars == b.cigars and a.routes == b.routes
+
+
+def test_counters_sum_per_call(traced):
+    trace.count("x", 2)                       # no span open: call None
+    with trace.span("outer", call=7):
+        trace.count("x", 3)
+        with trace.span("inner"):
+            trace.count("x", 4)
+            assert trace.current() == (7, "inner")
+    spans, counts = trace.drain()
+    assert counts == {(None, "x"): 2, (7, "x"): 7}
+    assert [(s.name, s.call, s.parent) for s in spans] == [
+        ("inner", 7, "outer"), ("outer", 7, None)]
+
+
+def test_counters_lose_no_update_across_threads(traced):
+    n_threads, n_adds = 16, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(k):
+            with trace.span("w", call=k % 2):
+                for _ in range(n_adds):
+                    trace.count("n", 1)
+
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    spans, counts = trace.drain()
+    assert len(spans) == n_threads
+    assert counts == {(0, "n"): n_threads // 2 * n_adds,
+                      (1, "n"): n_threads // 2 * n_adds}
+
+
+def test_launch_slots_and_resident_blocks(monkeypatch):
+    # 16 buckets of 512 blocks against 132 SMs x 3 resident: 2 waves
+    assert kernel.launch_slots(512, 396) == 792
+    assert kernel.launch_slots(396, 396) == 396
+    assert kernel.launch_slots(1, 396) == 396
+    assert kernel.launch_slots(0, 396) == 0
+    with pytest.raises(ValueError):
+        kernel.launch_slots(8, 0)
+    asked = []
+
+    def occupancy(cfg, wt, *, safe16, emit_flags=False, device=0):
+        asked.append((wt, safe16, emit_flags, device))
+        return 2 if emit_flags else 3
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(kernel, "occupancy", occupancy)
+    monkeypatch.setattr(kernel, "_resident_cache", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props)
+    for _ in range(3):
+        assert kernel._resident(CFG, 6144, True, False, 0) == 396
+        assert kernel._resident(CFG, 6144, True, True, 0) == 264
+    assert asked == [(6144, True, False, 0), (6144, True, True, 0)]
+    # a B3 sub-bucket of 160 pairs fills 160 of 264 slots
+    assert kernel.launch_slots(160, 264) == 264
+
+
+def test_host_split_keys_on_the_cpu():
+    engine = AlignEngine(CFG, TB, device="cpu")
+    enc = engine.encode_pairs(_pairs())
+    for tb in (False, True):
+        split = host_split(engine, enc, traceback=tb)
+        assert list(split) == ["validate", "pack", "copy", "launch",
+                               "collect", "other", "wall"]
+        assert all(v >= 0 for k, v in split.items() if k != "other")
+        assert split["launch"] + split["collect"] <= split["wall"]
+    assert not trace.on and trace.drain() == ([], {})
+    trace.enable()
+    try:
+        with pytest.raises(RuntimeError, match="tracing off"):
+            host_split(engine, enc)
+    finally:
+        trace.disable()
+
+
+@pytest.mark.cuda
+def test_card_fill_and_profiler_ranges(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from agatha_tpu_torch import make_workload
+
+    cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                      slice_width=3, z_threshold=400, band_width=751)
+    engine = AlignEngine(cfg, EngineConfig(use_all_devices=False))
+    enc = make_workload(256, 2000, seed=5)
+    engine.align(enc, traceback=True)  # builds the kernels
+    trace.drain()
+    trace.enable()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for tb in (False, True):
+                engine.align(enc, traceback=tb)
+    finally:
+        trace.disable()
+    spans, counts = trace.drain()
+    blocks = sum(v for (_c, k), v in counts.items() if k == "fill.blocks")
+    slots = sum(v for (_c, k), v in counts.items() if k == "fill.slots")
+    assert 0 < blocks <= slots
+    assert {s.name for s in spans} >= set(PARENT) - {"encode",
+                                                      "encode.native"}
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    names = {e.get("name") for e in json.loads(path.read_text())[
+        "traceEvents"]}
+    for n in ("agatha.dispatch", "agatha.launch", "agatha.collect",
+              "agatha.collect.wait_card", "agatha.collect.wait_decode"):
+        assert n in names, n
