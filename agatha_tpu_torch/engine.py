@@ -20,9 +20,14 @@ With ``traceback=True`` and the default `EngineConfig.traceback_mode`
 "device", every bucket (split to the `tb_flag_bytes` cap) goes to
 `ops.walk.align_bucket_traceback`: the flag-emitting antidiagonal
 kernel, then the walk, queued back to back, so the bucket's flag bitmap
-is freed before the next bucket's is allocated.  `_collect` copies each
-bucket's results and move words back in order and decodes the words on
-one worker thread while the card runs the later buckets.  Mode "host"
+is freed before the next bucket's is allocated.  Right behind its walk,
+`_dispatch` queues the copy of the bucket's results and move words into
+pinned host memory and an event after it, then hands the engine's one
+decode worker thread a job: wait for that event, decode the words.  So
+the worker decodes bucket i while the card runs the later buckets and
+the host packs them; `_collect` waits for the card once a device, then
+for the worker, and puts the rows in input order.  On the CPU the
+outputs are on the host already and a job starts at once.  Mode "host"
 runs the score path, then the native re-DP engine
 (`ops.traceback.traceback_all`).
 
@@ -32,8 +37,8 @@ and not yet collected (the command line's ``--stream``, `cli`).
 
 Each step records a span of `agatha_tpu_torch.trace` when tracing is on
 (encode, dispatch with validate / pack / stage / launch, collect with
-its waits for the card and for the decode worker, the worker's decode);
-off, a step pays one flag check.
+its waits for the card and for the decode worker, the worker's wait for
+a bucket's copies and its decode); off, a step pays one flag check.
 
 The engine dispatches over one list of slots (`_slots`): every local
 CUDA device when `EngineConfig.use_all_devices` is on and the engine's
@@ -170,6 +175,7 @@ class AlignEngine:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
         self._devices = None  # the slots; resolved by _slots()
+        self._decoder = None  # the decode worker; started by _decode_pool()
 
     # -- input preparation ------------------------------------------------
     def encode_pairs(
@@ -329,9 +335,9 @@ class AlignEngine:
         needs.
 
         Everything a batch's collect reads (its buckets, outputs,
-        routes, timings and trace call id) travels in this tuple, never
-        on the engine, so several batches can be in flight at once
-        (`align_stream`).
+        routes, timings, trace call id and decode jobs) travels in this
+        tuple, never on the engine, so several batches can be in flight
+        at once (`align_stream`).
         """
         device_tb = traceback and self.engine_cfg.traceback_mode == "device"
         call = trace.new_call()
@@ -345,9 +351,10 @@ class AlignEngine:
     def _finish(self, started: tuple, traceback: bool) -> AlignmentResult:
         """Collect a batch `_start` dispatched; in host traceback mode
         then run the native re-DP, after ``kernel_ms`` was taken."""
-        encoded, t0, call, buckets, outs, routes, timings = started
+        encoded, t0, call, buckets, outs, routes, timings, decodes = started
         with trace.span("collect", call=call):
-            res = self._collect(encoded, buckets, outs, routes, timings, t0)
+            res = self._collect(encoded, buckets, outs, routes, timings, t0,
+                                decodes)
         if traceback and res.cigars is None:
             res.cigars = traceback_all(
                 encoded, res.query_ends, res.target_ends, res.scores,
@@ -371,8 +378,10 @@ class AlignEngine:
         host fills chunk N+1 while the card runs chunk N: the
         reference's double-buffered batches (test_prog.cpp:245-376).
         Host memory is O(chunk), not O(dataset); with device traceback
-        each chunk in flight holds its move words, while the flag
-        bitmaps still die bucket by bucket.  Each chunk's
+        each chunk in flight holds its move words in pinned host memory
+        and queues its decodes on the engine's one worker behind those
+        of the chunks ahead of it, while the flag bitmaps still die
+        bucket by bucket.  Each chunk's
         ``kernel_ms`` runs from its dispatch to its collect, so the
         windows of chunks in flight overlap.
         """
@@ -481,12 +490,13 @@ class AlignEngine:
 
         Returns the buckets; their outputs (still being computed on a
         CUDA device): a (GB, 4) tensor, the list of its shards' (the
-        "anti-sharded" route), or with device traceback the pair (out,
-        move words); the route of each bucket; and, with
-        per_bucket_times, one entry per bucket: a list of (start, end)
-        CUDA events around the bucket's launches, one pair for each
-        device it runs on (every route's copies made before the first
-        event), or host-clock ms.
+        "anti-sharded" route), or with device traceback the (GB, 4)
+        rows on the host (`_Decodes.add`); the route of each bucket;
+        with per_bucket_times, one entry per bucket: a list of (start,
+        end) CUDA events around the bucket's launches, one pair for
+        each device it runs on (every route's copies made before the
+        first event, the copies back after the last), or host-clock ms;
+        and with device traceback the batch's `_Decodes`, else None.
 
         Whole buckets take the slots in turn, by the number dispatched
         so far (the JAX engine's ``rr_device`` and ``tb_devs``); with
@@ -495,6 +505,7 @@ class AlignEngine:
         """
         devs = self._slots()
         buckets, outs, routes, timings = [], [], [], []
+        decodes = _Decodes(self, trace.current()[0]) if device_tb else None
 
         def subbuckets():
             for b in self.iter_buckets(encoded,
@@ -562,10 +573,15 @@ class AlignEngine:
                     def run():
                         return align_bucket(*args, self.cfg)
                 with trace.span("launch"):
-                    outs.append(self._timed(run, span, timings)
-                                if per_bucket_times else run())
+                    out = (self._timed(run, span, timings)
+                           if per_bucket_times else run())
+                    if device_tb:
+                        out = decodes.add(*out)
+                outs.append(out)
             buckets.append(b)
-        return buckets, outs, routes, timings
+        if device_tb:
+            decodes.dispatching = False
+        return buckets, outs, routes, timings, decodes
 
     @staticmethod
     def _timed(run, span, timings):
@@ -622,48 +638,43 @@ class AlignEngine:
             yield _Bucket(idx, b.meta[lo:hi], b.tcodes[lo:hi],
                           b.qfwd[lo:hi])
 
-    def _decode_words(self, words: np.ndarray,
-                      under: tuple = (None, None)) -> list[str]:
+    def _decode_pool(self) -> ThreadPoolExecutor:
+        """The engine's one decode worker thread, started on first use.
+
+        Batches in flight (`align_stream`) queue their buckets' decodes
+        on it in dispatch order."""
+        if self._decoder is None:
+            self._decoder = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="agatha-decode")
+        return self._decoder
+
+    def _decode_words(self, words: np.ndarray) -> list[str]:
         """One bucket's move words -> CIGARs (native decoder, else the
-        NumPy one); runs on the collect path's worker thread, its span
-        under the (call, parent) of `trace.current` on the collecting
-        thread."""
+        NumPy one); runs on the decode worker."""
         from agatha_tpu_torch import native
 
-        with trace.span("decode", *under):
-            cigars = native.moves_to_cigars_batch(
-                words, n_threads=self.engine_cfg.cpu_threads)
-            if cigars is None:
-                moves = decode_moves(words)
-                cigars = [moves_to_cigar(m) for m in moves]
+        cigars = native.moves_to_cigars_batch(
+            words, n_threads=self.engine_cfg.cpu_threads)
+        if cigars is None:
+            cigars = [moves_to_cigar(m) for m in decode_moves(words)]
         return cigars
 
-    def _collect(self, encoded, buckets, outs, routes, timings,
-                 t0) -> AlignmentResult:
-        """Copy the results back and put the rows in input order.
+    def _collect(self, encoded, buckets, outs, routes, timings, t0,
+                 decodes=None) -> AlignmentResult:
+        """Wait for the results and put the rows in input order.
 
-        Score path: `_gather_rows`.  Device traceback: bucket by bucket,
-        in order, the (GB, 4) rows and the move words come back (each
-        copy waits only for its own bucket, on its own device) and one
-        worker thread decodes the words while the card runs the later
-        buckets.
+        Score path: `_gather_rows`, the copies back.  Device traceback
+        (``decodes``): the copies back are queued already, each behind
+        its bucket's walk, and the worker has been decoding since the
+        first of them completed; wait for the card once a device, then
+        for the worker's decodes (`_Decodes.wait`), and read the rows
+        from pinned host memory.
         """
         n = len(encoded)
-        device_tb = bool(outs) and isinstance(outs[0], tuple)
-        futs = []
+        device_tb = decodes is not None
         if device_tb:
-            under = trace.current()
-            with ThreadPoolExecutor(max_workers=1) as pool:
-                rows = []
-                for out, words in outs:
-                    with trace.span("collect.wait_card"):
-                        rows.append(out.cpu().numpy())
-                        host_words = words.cpu().numpy()
-                    futs.append(pool.submit(self._decode_words,
-                                            host_words, under))
-                with trace.span("collect.wait_decode"):
-                    decoded = [f.result() for f in futs]
-            all_out = np.concatenate(rows)
+            decoded = decodes.wait()
+            all_out = torch.cat(outs).numpy()
         else:
             with trace.span("collect.wait_card"):
                 all_out = _gather_rows([p for o in outs for p in _parts(o)])
@@ -707,11 +718,80 @@ class AlignEngine:
         )
 
 
+class _Decodes:
+    """One batch's CIGAR decodes on its engine's decode worker.
+
+    `_dispatch` calls `add` with each device-traceback bucket's (out,
+    words) right after queueing its kernels; `_collect` calls `wait`.
+    A job is submitted only after its event is recorded, so the worker
+    never waits on an event a failed launch left unrecorded.
+    """
+
+    def __init__(self, engine: AlignEngine, call: int | None):
+        self.engine = engine
+        self.call = call          # the batch's trace call id
+        self.jobs = []            # one future a bucket, in bucket order
+        self.ready = {}           # device -> its newest event (CPU: None)
+        self.newest = None        # the newest event on any device
+        self.dispatching = True   # until _dispatch returns
+
+    def add(self, out: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+        """Queue the bucket's copies back and its decode; returns its
+        (GB, 4) rows on the host, to be read after `wait`.
+
+        On a CUDA device (the slot's, current here) the copies go into
+        pinned memory from the caching host allocator, on the current
+        stream, so they run after this bucket's walk and before the next
+        bucket's kernels, and an event after them gates the job.  On the
+        CPU the tensors are on the host and the job can start at once.
+        """
+        dev, ready = out.device, None
+        if dev.type == "cuda":
+            out, words = (
+                torch.empty(t.shape, dtype=t.dtype,
+                            pin_memory=True).copy_(t, non_blocking=True)
+                for t in (out, words))
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+            self.newest = ready
+        self.ready[dev] = ready
+        self.jobs.append(self.engine._decode_pool().submit(
+            self._decode, words, ready))
+        return out
+
+    def _decode(self, words: torch.Tensor, ready) -> list[str]:
+        """The worker's job: wait for the bucket's copies, decode."""
+        with trace.span("decode.wait_card", self.call):
+            if ready is not None:
+                ready.synchronize()
+        with trace.span("decode", self.call):
+            if trace.on:
+                trace.count("decode.buckets", 1)
+                trace.count("decode.beside_card", self._card_busy())
+            return self.engine._decode_words(words.numpy())
+
+    def _card_busy(self) -> bool:
+        """Whether the batch still has kernels to run: its newest event
+        is pending on a CUDA device; on the CPU, where `_dispatch` runs
+        them, dispatch has not returned."""
+        if self.newest is None:
+            return self.dispatching
+        return not self.newest.query()
+
+    def wait(self) -> list[list[str]]:
+        """Wait for the card, once a device, then for every decode;
+        returns each bucket's CIGARs."""
+        for ready in self.ready.values():
+            with trace.span("collect.wait_card"):
+                if ready is not None:
+                    ready.synchronize()
+        with trace.span("collect.wait_decode"):
+            return [f.result() for f in self.jobs]
+
+
 def _parts(out) -> list[torch.Tensor]:
     """A dispatched output's (rows, 4) tensors: the shards of the
-    sharded route, the results of a traceback pair, else the tensor."""
-    if isinstance(out, tuple):
-        return [out[0]]
+    sharded route, else the tensor."""
     return out if isinstance(out, list) else [out]
 
 

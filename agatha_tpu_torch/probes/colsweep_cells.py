@@ -80,9 +80,9 @@ def host_split(engine, encoded, traceback: bool = False) -> dict:
     Keys: validation ("validate"), bucketing and packing ("pack", each
     step of the bucket generator), the pinned copies ("copy", the
     "stage" spans), the kernel launches ("launch", every route's
-    launcher; no synchronisation) and "collect" (the copies back,
-    which wait for the card, the reorder and, with ``traceback``, the
-    CIGAR decode); "other" is the rest of the wall.  On a CUDA device
+    launcher; no synchronisation) and "collect" (the waits for the card
+    and, with ``traceback``, for the CIGAR decode that began during
+    dispatch, and the reorder); "other" is the rest of the wall.  On a CUDA device
     the card is synchronised before the call.  Tracing must be off on
     entry: the split drains the records.
     """

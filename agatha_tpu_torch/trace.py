@@ -19,15 +19,18 @@ thread's spans sit in a profiler's trace beside the kernels.  Counters
 are summed per call id and name.
 
 A span's call id and parent are the innermost span open on its thread,
-unless given: the engine's decode worker names the batch and "collect".
+unless given: the engine's decode worker gives its spans their batch's
+call id and no parent (each is a root on the worker's thread, between
+its batch's dispatch and the end of its collect).
 `AlignEngine._start` takes one call id a batch and carries it to
 `_finish`, so the spans of a batch share it with chunks in flight
 (`align_stream`); an `encode_pairs` call has a call id of its own.
 
 `drain()` returns ``(spans, counts)``: the `Span` records in the order
 they ended, and a dict {(call, name): total} of the counters; and clears
-both.  Read it after the call it traces has returned: `_collect` joins
-its worker before it does.  The spans the engine records:
+both.  Read it after the call it traces has returned: `_collect` waits
+for every decode of its batch before it does.  The spans the engine
+records:
 
     encode               encode_pairs, the whole call
       encode.native      native.encode_batch's C++ call (two a batch)
@@ -35,14 +38,22 @@ its worker before it does.  The spans the engine records:
       validate           _validate
       pack               each step of the bucket generator
       stage              each host_to_device / stage_shards
-      launch             each route's launcher call
+      launch             each route's launcher call (device traceback:
+                         and the bucket's copies back and decode job)
     collect              _collect, the whole collect
-      collect.wait_card  the copies back, which wait for the card
+      collect.wait_card  the wait for the card: the score path's copies
+                         back; with device traceback, once a device
       collect.wait_decode  the wait for the decode worker
-      decode             one bucket's CIGAR decode, on the worker
+    decode.wait_card     on the decode worker: one bucket's wait for its
+                         copies back (device traceback)
+    decode               on the decode worker: one bucket's CIGAR decode
 
 and the counters ``fill.blocks`` and ``fill.slots`` of each launch of
-the antidiagonal kernel (`ops.kernel.launch_slots`).
+the antidiagonal kernel (`ops.kernel.launch_slots`), and on the decode
+worker ``decode.buckets`` (one a decode) and ``decode.beside_card``
+(decodes that began while their batch still had kernels to run: its
+newest event pending on a CUDA device; on the CPU, `_dispatch` not yet
+returned).
 """
 
 from __future__ import annotations

@@ -888,3 +888,35 @@ def test_engine_on_two_slots_equals_one(cuda, monkeypatch, traceback, slots):
     for f in ("scores", "query_ends", "target_ends", "diags"):
         assert (getattr(two, f) == getattr(one, f)).all(), f
     assert two.cigars == one.cigars
+
+
+@pytest.mark.parametrize("slots", [("cuda:0",), ("cuda:0", "cuda:0")])
+def test_engine_decodes_beside_the_card(cuda, slots):
+    """Device traceback in many sub-buckets (1 MiB of flags a bucket):
+    the decode worker starts on the first buckets' CIGARs while the card
+    still runs the later ones (`decode.beside_card` > 0 with the trace
+    on), on one slot and on two slots of one card; the results equal the
+    CPU engine's."""
+    from agatha_tpu_torch import trace
+
+    enc = _pairs(43, 64, 1000, 1600)
+    ecfg = EngineConfig(aligns_per_batch=32, tb_flag_bytes=1 << 20)
+    ref = AlignEngine(CANON, ecfg, device="cpu").align(enc, traceback=True)
+    eng = AlignEngine(CANON, ecfg, device=cuda)
+    eng._devices = sharding.make_pairs_mesh(slots)
+    eng.align(enc, traceback=True)  # builds the kernels
+    trace.drain()
+    trace.enable()
+    try:
+        res = eng.align(enc, traceback=True)
+    finally:
+        trace.disable()
+    _spans, counts = trace.drain()
+    total = {k: sum(v for (_c, name), v in counts.items() if name == k)
+             for k in ("decode.buckets", "decode.beside_card")}
+    assert res.routes == ["walk"] * res.n_buckets and res.n_buckets >= 8
+    assert total["decode.buckets"] == res.n_buckets
+    assert total["decode.beside_card"] > 0
+    for f in ("scores", "query_ends", "target_ends", "diags"):
+        assert (getattr(res, f) == getattr(ref, f)).all(), f
+    assert res.cigars == ref.cigars and any(res.cigars)

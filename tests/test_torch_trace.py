@@ -6,8 +6,10 @@ Imports no jax, so the one `cuda` test runs on the card with
 
 The CPU tests trace `encode_pairs` + `align` on the plain kernels: every
 span under its parent, in its parent's time, with its batch's call id;
-the decode on the worker thread; nothing recorded and no profiler range
-opened with tracing off; the launch-fill arithmetic.
+the decode worker's spans on its one thread, inside their batch's
+dispatch-to-collect window; a bucket's decode while dispatch still
+packs the later buckets, and its counters; nothing recorded and no
+profiler range opened with tracing off; the launch-fill arithmetic.
 """
 
 import json
@@ -35,9 +37,12 @@ PARENT = {
     "dispatch": None, "validate": "dispatch", "pack": "dispatch",
     "stage": "dispatch", "launch": "dispatch",
     "collect": None, "collect.wait_card": "collect",
-    "collect.wait_decode": "collect", "decode": "collect",
+    "collect.wait_decode": "collect",
+    # the decode worker's: roots on its thread, in their batch's call
+    "decode.wait_card": None, "decode": None,
 }
-SCORE_SPANS = set(PARENT) - {"collect.wait_decode", "decode"}
+WORKER = {"decode.wait_card", "decode"}
+SCORE_SPANS = set(PARENT) - WORKER - {"collect.wait_decode"}
 
 
 def _pairs(n=20, seed=3):
@@ -71,7 +76,8 @@ def _run(engine, pairs, traceback):
 
 def _check_tree(spans):
     """Parents by name, a call id a batch, every child inside its
-    parent; returns the spans by name."""
+    parent, the worker's spans inside their batch's dispatch start to
+    collect end; returns the spans by name."""
     by = {}
     for s in spans:
         by.setdefault(s.name, []).append(s)
@@ -79,7 +85,12 @@ def _check_tree(spans):
     for s in spans:
         assert s.parent == PARENT[s.name], s
         assert s.start_ns <= s.end_ns
-        assert (s.thread == main) == (s.name != "decode"), s
+        assert (s.thread == main) == (s.name not in WORKER), s
+        if s.name in WORKER:
+            (d,) = [p for p in by["dispatch"] if p.call == s.call]
+            (c,) = [p for p in by["collect"] if p.call == s.call]
+            assert d.start_ns <= s.start_ns and s.end_ns <= c.end_ns, s
+            continue
         if s.parent is None:
             continue
         # the parent span of the same call that holds it
@@ -108,17 +119,84 @@ def test_score_path_spans(traced):
 def test_device_traceback_spans(traced):
     engine = AlignEngine(CFG, TB, device="cpu")
     res = _run(engine, _pairs(), traceback=True)
-    spans, _counts = trace.drain()
+    spans, counts = trace.drain()
     by = _check_tree(spans)
     assert set(by) == set(PARENT)
     assert res.n_buckets > 1
-    assert len(by["decode"]) == len(by["collect.wait_card"]) == res.n_buckets
+    # one wait for the card a device; a decode and its wait a bucket
+    assert len(by["collect.wait_card"]) == 1
+    assert len(by["decode"]) == len(by["decode.wait_card"]) == res.n_buckets
     call = by["collect"][0].call
-    assert {s.call for s in by["decode"]} == {call}
+    work = by["decode"] + by["decode.wait_card"]
+    assert {s.call for s in work} == {call}
+    assert len({s.thread for s in work}) == 1
     assert by["dispatch"][0].call == call
     # the worker's decodes all end before the wait for them does
     (w,) = by["collect.wait_decode"]
     assert max(s.end_ns for s in by["decode"]) <= w.end_ns
+    assert counts[(call, "decode.buckets")] == res.n_buckets
+    assert 0 <= counts[(call, "decode.beside_card")] <= res.n_buckets
+
+
+def test_decode_runs_while_dispatch_packs(traced):
+    """`iter_buckets` holds its third bucket back until the first
+    bucket's decode has started (for at most 10 s), so the batch
+    finishes on time only if a decode runs while dispatch still packs;
+    the results equal a plain run's."""
+    ecfg = EngineConfig(aligns_per_batch=8, tb_flag_bytes=1 << 20)
+    pairs = _pairs(24)
+    plain = _run(AlignEngine(CFG, ecfg, device="cpu"), pairs, True)
+    engine = AlignEngine(CFG, ecfg, device="cpu")
+    started = threading.Event()
+    real_decode, real_iter = engine._decode_words, engine.iter_buckets
+    held = []
+
+    def decode(words):
+        started.set()
+        return real_decode(words)
+
+    def gated(encoded, **kw):
+        for k, b in enumerate(real_iter(encoded, **kw)):
+            if k == 2:
+                held.append(started.wait(timeout=10))
+            yield b
+
+    engine._decode_words, engine.iter_buckets = decode, gated
+    trace.drain()
+    res = _run(engine, pairs, True)
+    spans, counts = trace.drain()
+    assert held == [True], "no decode began while dispatch was packing"
+    by = _check_tree(spans)
+    (d,) = by["dispatch"]
+    assert min(s.start_ns for s in by["decode"]) < d.end_ns
+    assert res.n_buckets >= 3
+    assert counts[(d.call, "decode.buckets")] == res.n_buckets
+    assert counts[(d.call, "decode.beside_card")] >= 1
+    for f in ("scores", "query_ends", "target_ends", "diags"):
+        assert np.array_equal(getattr(res, f), getattr(plain, f)), f
+    assert res.cigars == plain.cigars and any(res.cigars)
+
+
+def test_chunks_in_flight_share_one_decode_worker(traced):
+    """align_stream with CIGARs: the chunks in flight queue their
+    decodes on the engine's one worker, in dispatch order."""
+    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=8,
+                                           tb_flag_bytes=1 << 20),
+                         device="cpu")
+    pairs = _pairs(24)
+    chunks = list(engine.align_stream(iter(pairs), traceback=True,
+                                      max_in_flight=3))
+    spans, counts = trace.drain()
+    _check_tree(spans)
+    work = sorted((s for s in spans if s.name in WORKER),
+                  key=lambda s: s.start_ns)
+    assert len({s.thread for s in work}) == 1
+    calls = [s.call for s in work]
+    assert calls == sorted(calls) and len(set(calls)) == len(chunks) == 3
+    assert sum(v for (_c, k), v in counts.items()
+               if k == "decode.buckets") == sum(c.n_buckets for c in chunks)
+    whole = engine.align(engine.encode_pairs(pairs), traceback=True)
+    assert sum((c.cigars for c in chunks), []) == whole.cigars
 
 
 def test_chunks_in_flight_keep_their_call_ids(traced):
