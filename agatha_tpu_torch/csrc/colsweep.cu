@@ -477,15 +477,45 @@ chain_kernel(const int32_t* __restrict__ meta,
   }
 }
 
-template <int K>
-cudaError_t launch_regs(const SweepParams& p, size_t smem, int blocks,
-                        cudaStream_t stream) {
+using SweepKernel = void (*)(const SweepParams);
+
+// The sweep instance of k_rows rows a lane (0: the shared-memory one), or
+// nullptr where there is none.
+SweepKernel sweep_instance(int k_rows) {
+  switch (k_rows) {
+    case 0: return sweep_smem_kernel;
+    case 4: return sweep_regs_kernel<4>;
+    case 8: return sweep_regs_kernel<8>;
+    case 12: return sweep_regs_kernel<12>;
+    case 16: return sweep_regs_kernel<16>;
+    case 20: return sweep_regs_kernel<20>;
+    case 24: return sweep_regs_kernel<24>;
+    case 28: return sweep_regs_kernel<28>;
+    case 32: return sweep_regs_kernel<32>;
+    default: return nullptr;
+  }
+}
+
+// Dynamic shared memory of a sweep block of wpb pairs on that instance.
+size_t sweep_block_smem(int R, int Q, int d_pad, int wpb, int k_rows) {
+  const size_t per_warp =
+      k_rows == 0 ? 3 * static_cast<size_t>(state_rows(R)) + d_pad
+                  : static_cast<size_t>(regs_warp_ints(d_pad, Q));
+  return sizeof(int) * per_warp * wpb;
+}
+
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of kern at this block
+// size and dynamic shared memory, or a negative CUDA error.
+template <typename Kernel>
+int resident_per_sm(Kernel kern, int threads, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_regs_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  sweep_regs_kernel<K><<<blocks, p.wpb * 32, smem, stream>>>(p);
-  return cudaGetLastError();
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                        threads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace
@@ -501,9 +531,9 @@ extern "C" int agatha_colsweep_sweep(const void* meta, const void* tcodes,
                                      int wpb, int k_rows, int match,
                                      int mismatch, int goe, int ge, int sw,
                                      int device, void* stream) {
-  if (wpb < 1 || wpb > kMaxWarpsPerBlock)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (k_rows != 0 && (k_rows % 4 != 0 || k_rows > 32 || R > 32 * k_rows))
+  const SweepKernel kern = sweep_instance(k_rows);
+  if (kern == nullptr || wpb < 1 || wpb > kMaxWarpsPerBlock ||
+      (k_rows != 0 && R > 32 * k_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -524,29 +554,13 @@ extern "C" int agatha_colsweep_sweep(const void* meta, const void* tcodes,
   p.goe = goe;
   p.ge = ge;
   p.sw = sw;
-  const int blocks = (gb + wpb - 1) / wpb;
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (k_rows == 0) {
-    const size_t smem =
-        sizeof(int) * (3 * static_cast<size_t>(state_rows(R)) + d_pad) * wpb;
-    err = cudaFuncSetAttribute(sweep_smem_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sweep_smem_kernel<<<blocks, wpb * 32, smem, st>>>(p);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t smem = sizeof(int) * regs_warp_ints(d_pad, Q) * wpb;
-  switch (k_rows) {
-#define AGATHA_SWEEP_CASE(k) \
-  case k:                    \
-    return static_cast<int>(launch_regs<k>(p, smem, blocks, st));
-    AGATHA_SWEEP_CASE(4) AGATHA_SWEEP_CASE(8) AGATHA_SWEEP_CASE(12)
-    AGATHA_SWEEP_CASE(16) AGATHA_SWEEP_CASE(20) AGATHA_SWEEP_CASE(24)
-    AGATHA_SWEEP_CASE(28) AGATHA_SWEEP_CASE(32)
-#undef AGATHA_SWEEP_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const size_t smem = sweep_block_smem(R, Q, d_pad, wpb, k_rows);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<(gb + wpb - 1) / wpb, wpb * 32, smem,
+         static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches the chain of one bucket on `stream` over the pair-major ring
@@ -562,4 +576,20 @@ extern "C" int agatha_colsweep_chain(const void* meta, const void* ring,
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(ring),
       static_cast<int32_t*>(out), gb, d_pad, sw, z, ge);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of the launch agatha_colsweep_sweep makes with
+// these (R, Q, d_pad, wpb, k_rows) (its instance, block size and dynamic
+// shared memory), or with chain != 0 of agatha_colsweep_chain's launch;
+// a negative CUDA error on failure.
+extern "C" int agatha_colsweep_occupancy(int chain, int R, int Q, int d_pad,
+                                         int wpb, int k_rows, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (chain) return resident_per_sm(chain_kernel, kChainWarps * 32, 0);
+  const SweepKernel kern = sweep_instance(k_rows);
+  if (kern == nullptr || wpb < 1 || wpb > kMaxWarpsPerBlock)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return resident_per_sm(kern, wpb * 32,
+                         sweep_block_smem(R, Q, d_pad, wpb, k_rows));
 }

@@ -45,6 +45,7 @@ import ctypes
 import numpy as np
 import torch
 
+from agatha_tpu_torch import trace
 from agatha_tpu_torch.config import AlignConfig
 from agatha_tpu_torch.constants import (
     INT32_MIN,
@@ -53,7 +54,7 @@ from agatha_tpu_torch.constants import (
     N_VALUE,
 )
 from agatha_tpu_torch.ops import _nvcc
-from agatha_tpu_torch.ops.kernel import _widen, int16_safe
+from agatha_tpu_torch.ops.kernel import _widen, int16_safe, launch_slots
 
 _I64 = np.int64
 # E-scan fill: loses every max and cannot wrap around.
@@ -262,6 +263,8 @@ build_log = ""
 SMEM_LIMIT = 232448
 # Pairs (warps) per block of the sweep kernel, where they fit.
 _MAX_WARPS_PER_BLOCK = 4
+# Pairs (warps) per block of the chain kernel (csrc kChainWarps).
+_CHAIN_WARPS = 4
 # Rows a lane of the sweep's register instances (csrc/colsweep.cu
 # sweep_regs_kernel<K>); a bucket whose R needs more takes the
 # shared-memory instance.
@@ -286,6 +289,8 @@ def build() -> ctypes.CDLL:
     lib.agatha_colsweep_sweep.restype = ci
     lib.agatha_colsweep_chain.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
     lib.agatha_colsweep_chain.restype = ci
+    lib.agatha_colsweep_occupancy.argtypes = [ci] * 7
+    lib.agatha_colsweep_occupancy.restype = ci
     _lib = lib
     return lib
 
@@ -344,6 +349,36 @@ def sweep_fits(shapes) -> bool:
     return sweep_smem_bytes(R, d_pad) <= SMEM_LIMIT
 
 
+def occupancy(shapes=None, *, chain: bool = False, device: int = 0) -> int:
+    """Resident blocks per SM of the sweep launch for these (R, Q, d_pad)
+    (the instance, pairs a block and shared memory of `sweep_launch`),
+    or with ``chain`` of the chain launch, which takes no shapes
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    if chain:
+        args = (0, 0, 0, 1, 0)
+    else:
+        k_rows, wpb = sweep_launch(shapes)
+        args = (*shapes, wpb, k_rows)
+    n = build().agatha_colsweep_occupancy(int(chain), *args, device)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
+
+
+# Blocks resident on a card at once, by (the sweep's shapes, or None for
+# the chain, device): occupancy() times the card's SMs, queried once each.
+_resident_cache: dict[tuple, int] = {}
+
+
+def _resident(shapes, chain: bool, dev: int) -> int:
+    key = (None if chain else tuple(shapes), dev)
+    if key not in _resident_cache:
+        _resident_cache[key] = occupancy(
+            shapes, chain=chain, device=dev,
+        ) * torch.cuda.get_device_properties(dev).multi_processor_count
+    return _resident_cache[key]
+
+
 def _check_shapes(tcodes, qfwd, shapes):
     """`shapes` must lie within the wire and cover every diagonal that
     R rows and Q columns reach (no device data is read)."""
@@ -391,6 +426,13 @@ def colsweep_sweep_cuda(meta, tcodes, qfwd, cfg: AlignConfig,
     )
     if err != 0:
         raise RuntimeError(f"colsweep sweep launch failed: CUDA error {err}")
+    if trace.on:
+        blocks = -(-gb // wpb)
+        trace.count("colsweep.buckets", 1)
+        trace.count("colsweep.smem", k_rows == 0)
+        trace.count("fill.sweep.blocks", blocks)
+        trace.count("fill.sweep.slots", launch_slots(
+            blocks, _resident(shapes, False, dev)))
     launches_sweep += 1
     launches_sweep_smem += k_rows == 0
     return ring.t()
@@ -424,6 +466,11 @@ def colsweep_chain_cuda(meta, ring, cfg: AlignConfig) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"colsweep chain launch failed: CUDA error {err}")
+    if trace.on:
+        blocks = -(-gb // _CHAIN_WARPS)
+        trace.count("fill.chain.blocks", blocks)
+        trace.count("fill.chain.slots", launch_slots(
+            blocks, _resident(None, True, dev)))
     launches_chain += 1
     return out
 

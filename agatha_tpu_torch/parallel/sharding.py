@@ -58,13 +58,21 @@ def on_device(device: torch.device):
 def host_to_device(arrays, device) -> tuple[torch.Tensor, ...]:
     """Host arrays as tensors on `device`; for a CUDA device staged in
     pinned memory and copied on its current stream without blocking the
-    host."""
+    host.
+
+    The host copy into pinned memory is NumPy's, on the calling thread:
+    `Tensor.pin_memory()` copies in a parallel region over torch's
+    intra-op threads, which stalls whenever one of their cores is busy
+    with another thread or process.
+    """
     device = torch.device(device)
     out = []
     for a in arrays:
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
+            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            np.copyto(pinned.numpy(), t.numpy())
+            t = pinned.to(device, non_blocking=True)
         out.append(t)
     return tuple(out)
 

@@ -73,9 +73,11 @@ def graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return best
 
 
-def host_split(engine, encoded, traceback: bool = False) -> dict:
+def host_split(engine, encoded, traceback: bool = False,
+               counts: dict | None = None) -> dict:
     """Host-clock ms of one warm align(), split by the engine's own
-    spans (`agatha_tpu_torch.trace`, on for the call).
+    spans (`agatha_tpu_torch.trace`, on for the call); ``counts``, where
+    given, is filled with the call's counters summed by name.
 
     Keys: validation ("validate"), bucketing and packing ("pack", each
     step of the bucket generator), the pinned copies ("copy", the
@@ -101,7 +103,10 @@ def host_split(engine, encoded, traceback: bool = False) -> dict:
         wall = time.perf_counter() - t0
     finally:
         trace.disable()
-    spans, _counts = trace.drain()
+    spans, traced = trace.drain()
+    if counts is not None:
+        for (_call, name), n in traced.items():
+            counts[name] = counts.get(name, 0) + n
     keys = {"validate": "validate", "pack": "pack", "stage": "copy",
             "launch": "launch", "collect": "collect"}
     split = dict.fromkeys(keys.values(), 0.0)

@@ -48,12 +48,25 @@ records:
                          copies back (device traceback)
     decode               on the decode worker: one bucket's CIGAR decode
 
-and the counters ``fill.blocks`` and ``fill.slots`` of each launch of
-the antidiagonal kernel (`ops.kernel.launch_slots`), and on the decode
-worker ``decode.buckets`` (one a decode) and ``decode.beside_card``
-(decodes that began while their batch still had kernels to run: its
-newest event pending on a CUDA device; on the CPU, `_dispatch` not yet
-returned).
+and the counters, each of a CUDA launch only (the plain versions on the
+CPU count nothing):
+
+    fill.blocks, fill.slots  each launch of the antidiagonal kernel
+                         (B1/B2/B3): its blocks, and its waves times the
+                         blocks resident on the card
+                         (`ops.kernel.launch_slots`)
+    fill.sweep.blocks, fill.sweep.slots  the same of each column-sweep
+                         launch (B4, `ops.colsweep`)
+    fill.chain.blocks, fill.chain.slots  the same of each chain launch
+                         (B5)
+    colsweep.buckets     one a B4 launch
+    colsweep.smem        one a B4 launch on the shared-memory instance
+                         (zero on a register instance)
+
+and on the decode worker ``decode.buckets`` (one a decode) and
+``decode.beside_card`` (decodes that began while their batch still had
+kernels to run: its newest event pending on a CUDA device; on the CPU,
+`_dispatch` not yet returned).
 """
 
 from __future__ import annotations

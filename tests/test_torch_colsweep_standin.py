@@ -111,7 +111,7 @@ def standin(tmp_path_factory):
     d = tmp_path_factory.mktemp("colsweep_standin")
     with open(os.path.join(CSRC, "colsweep.cu")) as f:
         src = f.read()
-    body = src[:src.index("template <int K>\ncudaError_t launch_regs(")]
+    body = src[:src.index("using SweepKernel = ")]
     body, n = re.subn(r"extern __shared__ int smem\[\];",
                       "int* const smem = g_dyn;", body)
     assert n == 2  # the register and shared-memory instances

@@ -828,6 +828,27 @@ def test_align_stream_on_cuda_equals_align(cuda):
                         batch.scores[i])
 
 
+def test_host_to_device_stages_every_array_exactly(cuda):
+    """Pinned staging on the calling thread: dtypes, strided and empty
+    inputs, and 200 stagings queued without a synchronisation, whose
+    pinned buffers the host allocator reuses only once their copies are
+    done."""
+    rng = np.random.default_rng(23)
+    meta = rng.integers(0, 2**31 - 1, (513, 2)).astype(np.int32)
+    codes = rng.integers(0, 256, (512, 96)).astype(np.uint8)
+    arrays = (meta, codes, meta[::3], codes.T, codes[:0])
+    out = sharding.host_to_device(arrays, cuda)
+    for a, t in zip(arrays, out):
+        assert t.device.type == "cuda" and t.is_contiguous()
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+    rounds = [rng.integers(0, 256, (512, 96)).astype(np.uint8)
+              for _ in range(200)]
+    staged = [sharding.host_to_device((a,), cuda)[0] for a in rounds]
+    torch.cuda.synchronize()
+    for a, t in zip(rounds, staged):
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
 def test_sharded_on_two_slots_equals_one_device(cuda):
     """align_bucket_sharded over two slots of one card: two launches,
     one a shard, whose rows equal align_bucket on one device."""

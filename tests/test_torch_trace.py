@@ -1,6 +1,6 @@
 """The engine's spans and counters (`agatha_tpu_torch.trace`).
 
-Imports no jax, so the one `cuda` test runs on the card with
+Imports no jax, so the `cuda` tests run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_trace.py
 
@@ -9,12 +9,15 @@ span under its parent, in its parent's time, with its batch's call id;
 the decode worker's spans on its one thread, inside their batch's
 dispatch-to-collect window; a bucket's decode while dispatch still
 packs the later buckets, and its counters; nothing recorded and no
-profiler range opened with tracing off; the launch-fill arithmetic.
+profiler range opened with tracing off; the launch-fill arithmetic, of
+the antidiagonal kernel and of the column sweep's two kernels, whose
+counting sites run here against a stand-in for the CUDA library.
 """
 
 import json
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ import torch
 
 from agatha_tpu_torch import AlignConfig, AlignEngine, EngineConfig, SeqPair
 from agatha_tpu_torch import trace
+from agatha_tpu_torch.ops import colsweep as cs
 from agatha_tpu_torch.ops import kernel
 from agatha_tpu_torch.probes.colsweep_cells import host_split
 
@@ -306,6 +310,109 @@ def test_launch_slots_and_resident_blocks(monkeypatch):
     assert kernel.launch_slots(160, 264) == 264
 
 
+class Props:
+    multi_processor_count = 132
+
+
+def test_colsweep_resident_blocks(monkeypatch):
+    asked = []
+
+    def occupancy(shapes=None, *, chain=False, device=0):
+        asked.append((shapes, chain, device))
+        return 12 if chain else 16
+
+    monkeypatch.setattr(cs, "occupancy", occupancy)
+    monkeypatch.setattr(cs, "_resident_cache", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props)
+    for _ in range(3):
+        assert cs._resident((160, 160, 384), False, 0) == 2112
+        assert cs._resident((192, 160, 384), False, 0) == 2112
+        assert cs._resident(None, True, 0) == 1584
+        assert cs._resident(None, True, 1) == 1584
+    assert asked == [((160, 160, 384), False, 0), ((192, 160, 384), False, 0),
+                     (None, True, 0), (None, True, 1)]
+    # a 512-pair short-read bucket: 128 sweep blocks of 4 pairs and 128
+    # chain blocks of 4, one wave each
+    assert cs.sweep_launch((160, 160, 384)) == (8, 4)
+    assert kernel.launch_slots(128, 2112) == 2112
+    assert kernel.launch_slots(128, 1584) == 1584
+
+
+class FakeColsweepLib:
+    """Stands in for csrc/colsweep.cu's library: each launch succeeds
+    and computes nothing."""
+
+    def agatha_colsweep_sweep(self, *args):
+        return 0
+
+    def agatha_colsweep_chain(self, *args):
+        return 0
+
+
+def _bucket(gb, R, Q):
+    meta = torch.tensor([[Q, R]] * gb, dtype=torch.int32)
+    tcodes = torch.zeros((gb, R // 2), dtype=torch.uint8)
+    qfwd = torch.zeros((gb, Q // 2), dtype=torch.uint8)
+    shapes = cs.colsweep_shapes(meta.numpy(), tcodes, qfwd, CFG)
+    return meta, tcodes, qfwd, shapes
+
+
+@pytest.fixture
+def fake_launches(monkeypatch):
+    """The column sweep's CUDA wrappers on CPU tensors against the
+    stand-in library, with 16 sweep and 12 chain blocks an SM."""
+    monkeypatch.setattr(cs, "build", FakeColsweepLib)
+    monkeypatch.setattr(cs, "_device", lambda meta: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props)
+    monkeypatch.setattr(cs, "occupancy", lambda shapes=None, *, chain=False,
+                        device=0: 12 if chain else 16)
+    monkeypatch.setattr(cs, "_resident_cache", {})
+    for name in ("launches_sweep", "launches_sweep_smem", "launches_chain"):
+        monkeypatch.setattr(cs, name, getattr(cs, name))
+
+
+def _launch_both(buckets):
+    for meta, tcodes, qfwd, shapes in buckets:
+        ring = cs.colsweep_sweep_cuda(meta, tcodes, qfwd, CFG, shapes)
+        cs.colsweep_chain_cuda(meta, ring, CFG)
+
+
+def test_colsweep_launches_count_their_fill(fake_launches, traced):
+    # 512 pairs on a register instance, 37 pairs of 1056 rows on the
+    # shared-memory instance; 4 pairs a block on both
+    short = _bucket(512, 160, 160)
+    wide = _bucket(37, 1056, 160)
+    assert cs.sweep_launch(short[3])[0] > 0
+    assert cs.sweep_launch(wide[3])[0] == 0
+    assert cs.sweep_launch(wide[3])[1] == 4
+    with trace.span("launch", call=3):
+        _launch_both([short, wide])
+    _spans, counts = trace.drain()
+    assert counts == {
+        (3, "colsweep.buckets"): 2,
+        (3, "colsweep.smem"): 1,
+        (3, "fill.sweep.blocks"): 128 + 10,
+        (3, "fill.sweep.slots"): 2112 + 2112,
+        (3, "fill.chain.blocks"): 128 + 10,
+        (3, "fill.chain.slots"): 1584 + 1584,
+    }
+    # the antidiagonal kernel's counters stay its own
+    assert not any(k.startswith("fill.blocks") for _c, k in counts)
+
+
+def test_colsweep_launches_count_nothing_with_tracing_off(fake_launches):
+    trace.drain()
+    before = cs.launches_sweep, cs.launches_chain
+    _launch_both([_bucket(64, 160, 160)])
+    assert trace.drain() == ([], {})
+    assert (cs.launches_sweep, cs.launches_chain) == (before[0] + 1,
+                                                       before[1] + 1)
+
+
 def test_host_split_keys_on_the_cpu():
     engine = AlignEngine(CFG, TB, device="cpu")
     enc = engine.encode_pairs(_pairs())
@@ -358,3 +465,32 @@ def test_card_fill_and_profiler_ranges(tmp_path):
     for n in ("agatha.dispatch", "agatha.launch", "agatha.collect",
               "agatha.collect.wait_card", "agatha.collect.wait_decode"):
         assert n in names, n
+
+
+@pytest.mark.cuda
+def test_card_short_reads_count_the_column_sweep_fill():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from agatha_tpu_torch import make_workload
+
+    cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                      slice_width=3, z_threshold=400, band_width=751)
+    engine = AlignEngine(cfg, EngineConfig(use_all_devices=False))
+    enc = make_workload(2048, 150, seed=19, spread=0.05)
+    engine.align(enc)  # builds the kernels
+    counts = {}
+    host_split(engine, enc, counts=counts)
+    res = engine.align(enc)
+    assert set(res.routes) == {"colsweep"}
+    assert counts["colsweep.buckets"] == res.n_buckets
+    assert counts["colsweep.smem"] == 0
+    for k in ("sweep", "chain"):
+        blocks = counts[f"fill.{k}.blocks"]
+        assert 0 < blocks <= counts[f"fill.{k}.slots"]
+    # 4 pairs a block in both kernels
+    assert counts["fill.sweep.blocks"] == counts["fill.chain.blocks"] \
+        == sum(-(-b.meta.shape[0] // 4) for b in engine.make_buckets(enc))
+    assert "fill.blocks" not in counts
+    # tracing off: nothing is recorded
+    engine.align(enc)
+    assert trace.drain() == ([], {})
