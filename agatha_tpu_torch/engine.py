@@ -35,6 +35,10 @@ runs the score path, then the native re-DP engine
 ``aligns_per_batch`` pairs, with a bounded window of chunks dispatched
 and not yet collected (the command line's ``--stream``, `cli`).
 
+`encode_pairs` writes each side's codes with one native pass into a
+flat slab that the engine recycles once no code array of an earlier
+batch views it (`_Slabs`).
+
 Each step records a span of `agatha_tpu_torch.trace` when tracing is on
 (encode, dispatch with validate / pack / stage / launch, collect with
 its waits for the card and for the decode worker, the worker's wait for
@@ -60,8 +64,10 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 import time
 import warnings
+import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -155,6 +161,50 @@ class _Bucket:
     qfwd: np.ndarray          # (GB, QF/2) uint8 nibbles
 
 
+class _Slabs:
+    """Code slabs of `AlignEngine.encode_pairs`, recycled across batches.
+
+    A slab is a uint8 array over a bytearray.  Every code array of a
+    batch's side is a slice of that side's array, so the array dies with
+    the last of them; a finalizer then puts the bytearray on the free
+    list, and a later batch writes into pages already faulted in.
+    `take` hands out the smallest free slab that is large enough (count
+    ``encode.slab_reused``), else a new one with some room over the
+    size asked for (``encode.slab_new``), and keeps at most ``keep``
+    free.  The finalizer runs on whichever thread drops the last view,
+    or inside `take` itself when a collection frees one there, so the
+    list is guarded by a reentrant lock.
+    """
+
+    def __init__(self, keep: int = 4):
+        self.keep = keep
+        self._free: list[bytearray] = []
+        self._lock = threading.RLock()
+
+    def _give_back(self, buf: bytearray) -> None:
+        with self._lock:
+            self._free.append(buf)
+
+    def take(self, size: int) -> np.ndarray:
+        with self._lock:
+            free = self._free
+            fits = [i for i, b in enumerate(free) if len(b) >= size]
+            buf = (free.pop(min(fits, key=lambda i: len(free[i])))
+                   if fits else None)
+            while len(free) > self.keep:
+                free.pop(min(range(len(free)), key=lambda i: len(free[i])))
+        if buf is not None:
+            trace.count("encode.slab_reused", 1)
+        else:
+            # a 16th over, in whole 64 KiB: the next batch of a stream
+            # seldom needs more
+            buf = bytearray(-(-(size + size // 16) // 65536) * 65536)
+            trace.count("encode.slab_new", 1)
+        slab = np.frombuffer(buf, np.uint8)
+        weakref.finalize(slab, self._give_back, buf).atexit = False
+        return slab
+
+
 class AlignEngine:
     """Aligns arbitrary batches of encoded pairs on the local device(s)."""
 
@@ -176,6 +226,7 @@ class AlignEngine:
             raise ValueError(f"unsupported device {device!r}")
         self._devices = None  # the slots; resolved by _slots()
         self._decoder = None  # the decode worker; started by _decode_pool()
+        self._slabs = _Slabs()  # the encoder's code slabs
 
     # -- input preparation ------------------------------------------------
     def encode_pairs(
@@ -183,8 +234,9 @@ class AlignEngine:
     ) -> list[tuple[np.ndarray, np.ndarray, int, int]]:
         """FASTA pairs -> (q_codes, t_codes, qlen, rlen) with ops applied.
 
-        Uses the native C++ batch encoder when it builds; falls back to
-        NumPy per pair.
+        Uses the native list encoder when it builds, each side's codes
+        slices of one slab from the engine's free list (`_Slabs`); falls
+        back to the native batch encoder, then to NumPy per pair.
         """
         with trace.span("encode", call=trace.new_call()):
             return self._encode(pairs)
@@ -192,11 +244,32 @@ class AlignEngine:
     def _encode(self, pairs):
         from agatha_tpu_torch import native
 
-        if native.available() and pairs:
+        if not pairs:
+            return []
+        q = native.encode_list([p.query for p in pairs],
+                               [p.query_op for p in pairs], self._slabs.take)
+        t = q and native.encode_list([p.target for p in pairs],
+                                     [p.target_op for p in pairs],
+                                     self._slabs.take)
+        if t:
+            (qs, qo, ql), (ts, to, tl) = q, t
+            qo, to = qo.tolist(), to.tolist()
+            return [(qs[a:b], ts[c:d], x, y) for a, b, c, d, x, y in zip(
+                qo, qo[1:], to, to[1:], ql.tolist(), tl.tolist())]
+        trace.count("encode.fallback", 1)
+        return self._encode_rows(pairs)
+
+    def _encode_rows(self, pairs):
+        """The batch encoder's path: each side as padded rows."""
+        from agatha_tpu_torch import native
+
+        if native.available():
             def batch(seqs, ops):
+                seqs = [s.encode() if isinstance(s, str) else s
+                        for s in seqs]
                 stride = max(8, -(-max(len(s) for s in seqs) // 8) * 8)
                 return native.encode_batch(
-                    [s.encode() if isinstance(s, str) else s for s in seqs],
+                    seqs,
                     np.asarray(ops, np.uint8),
                     stride,
                     n_threads=self.engine_cfg.cpu_threads,

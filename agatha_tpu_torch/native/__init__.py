@@ -1,14 +1,19 @@
 """Native (C++) host helpers, loaded through ctypes.
 
-The port's copy of agatha_tpu/native/__init__.py: the batch encoder
-(`packer.cpp`), the adaptive re-DP CIGAR engine of host traceback and
-the decoder of the device walk's move words (`traceback.cpp`), both
-byte-identical copies of the JAX package's sources.  They are built
-together with g++ at first use into one library in
-agatha_tpu_torch/_build/, keyed by a hash of the sources and the host's
-CPU features, never next to the sources.  Every entry point falls back
-(or returns None, for its caller to fall back) when the library cannot
-be built or loaded, with identical output.
+The port's copy of agatha_tpu/native/__init__.py, and one source of its
+own.  The batch encoder (`packer.cpp`, the JAX package's source with a
+note of its own at the top), the adaptive re-DP CIGAR engine of host
+traceback and the decoder of the device walk's move words
+(`traceback.cpp`, byte-identical to the JAX package's) are built
+together with g++ at first use into one library.  The one-pass list
+encoder (`encoder.cpp`, port only) calls the CPython API, so it is
+built into a library of its own, against Python's headers, and loaded
+through `ctypes.PyDLL`: where it cannot be built, only its entry falls
+back.  Both libraries go to agatha_tpu_torch/_build/, keyed by a hash of
+their sources and the host's CPU features, never next to the sources.
+Every entry point falls back (or returns None, for its caller to fall
+back) when its library cannot be built or loaded, with identical
+output.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import hashlib
 import os
 import platform
 import subprocess
+import sysconfig
 
 import numpy as np
 
@@ -26,11 +32,15 @@ from agatha_tpu_torch import trace
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "packer.cpp"),
          os.path.join(_DIR, "traceback.cpp")]
+_ENC_SRCS = [os.path.join(_DIR, "encoder.cpp")]
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
+_ENC_FLAGS = [*_FLAGS, "-I", sysconfig.get_paths()["include"]]
 
 _lib = None
 _tried = False
+_enc = None
+_enc_tried = False
 
 
 def _arch_tag() -> str:
@@ -53,13 +63,27 @@ def _arch_tag() -> str:
     return f"{platform.machine()}-{h}"
 
 
-def _so_path() -> str:
-    key = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SRCS:
+def _so_path(srcs=_SRCS, flags=_FLAGS, stem="native") -> str:
+    key = hashlib.sha256(" ".join(flags).encode())
+    for src in srcs:
         with open(src, "rb") as f:
             key.update(f.read())
     return os.path.join(_BUILD_DIR,
-                        f"native-{key.hexdigest()[:16]}.{_arch_tag()}.so")
+                        f"{stem}-{key.hexdigest()[:16]}.{_arch_tag()}.so")
+
+
+def _build(srcs, flags, stem) -> str:
+    """Path of the built library, built first if it is not there."""
+    so = _so_path(srcs, flags, stem)
+    if not os.path.exists(so):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        # build to a private temp file and rename atomically so
+        # concurrent processes never load a half-written .so
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *flags, "-o", tmp, *srcs],
+                       check=True, capture_output=True)
+        os.replace(tmp, so)
+    return so
 
 
 def _load():
@@ -68,16 +92,7 @@ def _load():
         return _lib
     _tried = True
     try:
-        so = _so_path()
-        if not os.path.exists(so):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            # build to a private temp file and rename atomically so
-            # concurrent processes never load a half-written .so
-            tmp = f"{so}.{os.getpid()}.tmp"
-            subprocess.run(["g++", *_FLAGS, "-o", tmp, *_SRCS],
-                           check=True, capture_output=True)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(_build(_SRCS, _FLAGS, "native"))
     except (OSError, subprocess.CalledProcessError):
         return None
     i64 = ctypes.c_int64
@@ -114,6 +129,62 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def _load_encoder():
+    """The list encoder (encoder.cpp), or None where it does not build
+    or load; the rest of the native code does not depend on it."""
+    global _enc, _enc_tried
+    if _enc_tried:
+        return _enc
+    _enc_tried = True
+    try:
+        lib = ctypes.PyDLL(_build(_ENC_SRCS, _ENC_FLAGS, "encoder"))
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    lib.agatha_encode_list.argtypes = [
+        ctypes.py_object, ctypes.py_object, ctypes.c_void_p,
+        ctypes.c_int64, p64, ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.agatha_encode_list.restype = ctypes.c_int64
+    _enc = lib
+    return _enc
+
+
+def encoder_available() -> bool:
+    return _load_encoder() is not None
+
+
+def encode_list(seqs: list, ops: list | None, slab_for):
+    """Encode a list of str / bytes into one flat slab of padded codes.
+
+    The codes of `encode_batch` (and of `ops.packing.encode_padded`),
+    read from each item's own bytes: a str's UTF-8, as ``.encode()``
+    gives it.  Sequence i's codes are ``slab[offsets[i]:offsets[i+1]]``,
+    its length in bytes ``lens[i]``.  ``slab_for(size)`` returns a 1-D
+    contiguous uint8 array of at least ``size`` bytes to write into.
+    Returns (slab, offsets int64 (n+1,), lens int32 (n,)), or None when
+    the encoder is unavailable or an item cannot be read (neither str
+    nor bytes, or a str with no UTF-8 form), for the caller to fall
+    back.
+    """
+    lib = _load_encoder()
+    if lib is None:
+        return None
+    n = len(seqs)
+    offsets = np.empty(n + 1, np.int64)
+    lens = np.empty(n, np.int32)
+    p64 = offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    p32 = lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+    with trace.span("encode.native"):
+        total = lib.agatha_encode_list(seqs, ops, None, 0, p64, p32)
+        if total < 0:
+            return None
+        slab = slab_for(total)
+        rc = lib.agatha_encode_list(seqs, ops, slab.ctypes.data,
+                                    slab.size, p64, p32)
+    return (slab, offsets, lens) if rc == total else None
 
 
 def _p8(a):

@@ -33,7 +33,7 @@ for every decode of its batch before it does.  The spans the engine
 records:
 
     encode               encode_pairs, the whole call
-      encode.native      native.encode_batch's C++ call (two a batch)
+      encode.native      native.encode_list's C++ calls (one a side)
     dispatch             _start: validation, packing, copies, launches
       validate           _validate
       pack               each step of the bucket generator
@@ -63,7 +63,10 @@ CPU count nothing):
     colsweep.smem        one a B4 launch on the shared-memory instance
                          (zero on a register instance)
 
-and on the decode worker ``decode.buckets`` (one a decode) and
+and, on the CPU too, in `encode_pairs` ``encode.slab_new`` and ``encode.slab_reused`` (one
+a side: its code slab allocated, or taken from the engine's free list)
+and ``encode.fallback`` (one a batch on the batch encoder's path), and
+on the decode worker ``decode.buckets`` (one a decode) and
 ``decode.beside_card`` (decodes that began while their batch still had
 kernels to run: its newest event pending on a CUDA device; on the CPU,
 `_dispatch` not yet returned).

@@ -5,6 +5,7 @@ import os
 import time
 import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -296,3 +297,203 @@ def test_default_device_is_the_card():
         return
     with pytest.raises(RuntimeError, match="torch sees no CUDA device"):
         AlignEngine(CFG)
+
+
+# -- the list encoder (native/encoder.cpp) and its recycled slabs ----------
+
+ENCODE_CASES = ["short", "long", "bytes", "mixed", "lower_n", "non_ascii",
+                "one_pair", "bytearray"]
+
+
+def _encode_case(case, seed=11):
+    """SeqPairs of one parity case; every op on each side (16 pairs cycle
+    through the 4 x 4 combinations)."""
+    from agatha_tpu_torch.io.fasta import SeqPair
+
+    rng = np.random.default_rng(seed)
+    alphabet = list("ACGTNacgtn" if case == "lower_n" else "ACGT")
+
+    def seqs(n, lo, hi):
+        return ["".join(rng.choice(alphabet, int(rng.integers(lo, hi))))
+                for _ in range(n)]
+
+    n, lo, hi = {"long": (5, 10_000, 15_001),
+                 "one_pair": (1, 1, 301)}.get(case, (48, 1, 301))
+    qs, ts = seqs(n, lo, hi), seqs(n, lo, hi)
+    if case == "non_ascii":
+        # 2-, 3- and 4-byte UTF-8 characters among the bases
+        qs = [s[:3] + "é" + s[3:] + "→" for s in qs]
+        ts = [s + "\U0001f9ec" + s[:2] for s in ts]
+    conv = {"bytes": lambda i, s: s.encode(),
+            "mixed": lambda i, s: s.encode() if i % 2 else s,
+            "bytearray": lambda i, s: bytearray(s.encode())}.get(
+                case, lambda i, s: s)
+    return [SeqPair(conv(i, q), conv(i + 1, t), i % 4, (i // 4) % 4)
+            for i, (q, t) in enumerate(zip(qs, ts))]
+
+
+def _batch_encoder_rows(seqs, ops):
+    """The batch encoder (native/packer.cpp) on a side: (rows, lens)."""
+    from agatha_tpu_torch import native
+
+    blobs = [s.encode() if isinstance(s, str) else bytes(s) for s in seqs]
+    stride = max(8, -(-max(len(b) for b in blobs) // 8) * 8)
+    return native.encode_batch(blobs, np.array(ops, np.uint8), stride)
+
+
+@pytest.mark.parametrize("unavailable", ["", "encoder", "both"])
+@pytest.mark.parametrize("case", ENCODE_CASES)
+def test_list_encoder_matches_batch_encoder(monkeypatch, case, unavailable):
+    """`encode_pairs` gives the batch encoder's codes and lengths byte
+    for byte, for every op on each side, str and bytes, lower case and
+    N, non-ASCII str (its UTF-8 bytes), one pair; as it does with the
+    list encoder unavailable, or both native libraries (NumPy per pair,
+    whose ASCII-only decode the non-ASCII case is not given).  A batch
+    that takes the older path counts ``encode.fallback``."""
+    from agatha_tpu_torch import native, trace
+
+    if unavailable == "both" and case == "non_ascii":
+        unavailable = "encoder"
+    assert native.encoder_available() and native.available()
+    if unavailable:
+        monkeypatch.setattr(native, "_enc", None)
+        monkeypatch.setattr(native, "_enc_tried", True)
+    if unavailable == "both":
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_tried", True)
+    pairs = _encode_case(case)
+    trace.drain()
+    trace.enable()
+    try:
+        enc = AlignEngine(CFG, device="cpu").encode_pairs(pairs)
+    finally:
+        trace.disable()
+    counts = {k: v for (_c, k), v in trace.drain()[1].items()}
+    took_old = bool(unavailable) or case == "bytearray"
+    assert counts == ({"encode.fallback": 1} if took_old
+                      else {"encode.slab_new": 2})
+    monkeypatch.undo()
+    for side in (0, 1):
+        seqs = [(p.query, p.target)[side] for p in pairs]
+        ops = [(p.query_op, p.target_op)[side] for p in pairs]
+        rows, lens = _batch_encoder_rows(seqs, ops)
+        assert [e[2 + side] for e in enc] == lens.tolist()
+        for i, e in enumerate(enc):
+            codes = e[side]
+            pad = -(-int(lens[i]) // 8) * 8
+            assert codes.dtype == np.uint8 and codes.ndim == 1
+            assert codes.flags.c_contiguous and codes.size == pad
+            assert codes.tobytes() == rows[i, :pad].tobytes(), (side, i)
+
+
+def test_encode_recycles_a_slab_only_once_its_views_are_gone():
+    """Batch A held while B encodes: A's codes stay as they were and B
+    takes new slabs; with A dropped, C takes A's.  At most ``keep``
+    slabs stay free."""
+    from agatha_tpu_torch import trace
+
+    engine = AlignEngine(CFG, device="cpu")
+    pa, pb, pc = (_encode_case("short", seed) for seed in (1, 2, 3))
+
+    def encode(pairs):
+        trace.drain()
+        trace.enable()
+        try:
+            enc = engine.encode_pairs(pairs)
+        finally:
+            trace.disable()
+        return enc, {k: v for (_c, k), v in trace.drain()[1].items()}
+
+    a, _ = encode(pa)
+    before = [(q.tobytes(), t.tobytes()) for q, t, _q, _t in a]
+    b, counts_b = encode(pb)
+    assert [(q.tobytes(), t.tobytes()) for q, t, _q, _t in a] == before
+    assert counts_b == {"encode.slab_new": 2}
+    del a
+    c, counts_c = encode(pc)
+    assert counts_c == {"encode.slab_reused": 2}
+    for got, pairs in ((b, pb), (c, pc)):
+        ref = engine._encode_rows(pairs)
+        assert [(q.tobytes(), t.tobytes(), x, y) for q, t, x, y in got] \
+            == [(q.tobytes(), t.tobytes(), x, y) for q, t, x, y in ref]
+    del got
+
+    held = [encode(pa)[0] for _ in range(4)]
+    del b, c, held
+    assert len(engine._slabs._free) == 12
+    d, _ = encode(pa)
+    assert 0 < len(engine._slabs._free) <= engine._slabs.keep
+
+
+def test_stream_chunks_in_flight_keep_their_codes():
+    """`align_stream` with three chunks in flight, each encoded into
+    slabs while the chunks ahead of it are still held, scores as `align`
+    does chunk by chunk; the later chunks reuse the first ones' slabs."""
+    from agatha_tpu_torch import EngineConfig, trace
+    from agatha_tpu_torch.io.fasta import SeqPair
+
+    rng = np.random.default_rng(5)
+    pairs = []
+    for i in range(80):
+        q = random_seq(rng, int(rng.integers(40, 120)))
+        t = mutate(rng, q) if i % 2 else random_seq(rng, 60)
+        pairs.append(SeqPair(q, t, 0, 0))
+    ecfg = EngineConfig(aligns_per_batch=16)
+    trace.drain()
+    trace.enable()
+    try:
+        chunks = list(AlignEngine(CFG, ecfg, device="cpu").align_stream(
+            iter(pairs), max_in_flight=3))
+    finally:
+        trace.disable()
+    counts = {}
+    for (_c, k), v in trace.drain()[1].items():
+        counts[k] = counts.get(k, 0) + v
+    assert counts == {"encode.slab_new": 6, "encode.slab_reused": 4}
+    ref = AlignEngine(CFG, ecfg, device="cpu")
+    assert len(chunks) == 5
+    for k, got in enumerate(chunks):
+        exp = ref.align_pairs(pairs[16 * k: 16 * (k + 1)])
+        for f in FIELDS:
+            assert (getattr(got, f) == getattr(exp, f)).all(), (k, f)
+
+
+def test_slab_free_list_holds_under_threads():
+    """Sixteen threads take slabs from one free list, fill them, take
+    another, and check the first before dropping both (their finalizers
+    giving them back on those threads), with a short switch interval: no
+    slab is ever handed to two holders at once, and no slab is on the
+    free list twice."""
+    import sys
+    import threading
+
+    from agatha_tpu_torch.engine import _Slabs
+
+    slabs = _Slabs()
+    bad = []
+
+    def work(k):
+        rng = np.random.default_rng(k)
+        for _ in range(100):
+            a = slabs.take(int(rng.integers(1, 200_000)))
+            a[:] = k
+            b = slabs.take(int(rng.integers(1, 200_000)))
+            b[:] = 255 - k
+            if (a != k).any():
+                bad.append(k)
+            del a, b
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+    assert len({id(b) for b in slabs._free}) == len(slabs._free) > 0

@@ -117,7 +117,39 @@ def test_score_path_spans(traced):
     assert len(by["launch"]) == len(by["stage"]) == res.n_buckets
     # one step of the bucket generator a bucket, and the one that ends it
     assert len(by["pack"]) == res.n_buckets + 1
-    assert counts == {}  # no CUDA launch, no fill counter
+    # no CUDA launch, no fill counter; a new slab a side of the batch
+    assert counts == {(by["encode"][0].call, "encode.slab_new"): 2}
+
+
+def test_encode_counts_its_slabs_and_fallbacks(traced, monkeypatch):
+    """`encode_pairs` counts a slab a side under its own call id: new
+    while the earlier batch is held, reused once it is dropped; and one
+    ``encode.fallback`` for a batch that takes the batch encoder."""
+    from agatha_tpu_torch import native
+
+    engine = AlignEngine(CFG, device="cpu")
+    pairs = _pairs()
+
+    def counted():
+        spans, counts = trace.drain()
+        (enc,) = [s for s in spans if s.name == "encode"]
+        assert {c for c, _k in counts} == {enc.call}
+        return {k: v for (_c, k), v in counts.items()}
+
+    a = engine.encode_pairs(pairs)
+    assert counted() == {"encode.slab_new": 2}
+    b = engine.encode_pairs(pairs)
+    assert counted() == {"encode.slab_new": 2}
+    del a
+    c = engine.encode_pairs(pairs)
+    assert counted() == {"encode.slab_reused": 2}
+    monkeypatch.setattr(native, "_enc", None)
+    monkeypatch.setattr(native, "_enc_tried", True)
+    d = engine.encode_pairs(pairs)
+    assert counted() == {"encode.fallback": 1}
+    for x in (b, c):
+        assert [(q.tobytes(), t.tobytes(), ql, rl) for q, t, ql, rl in x] \
+            == [(q.tobytes(), t.tobytes(), ql, rl) for q, t, ql, rl in d]
 
 
 def test_device_traceback_spans(traced):
