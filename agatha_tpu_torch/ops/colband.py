@@ -574,40 +574,17 @@ def colband_torch(scalars, tcodes, qfwd, cfg: AlignConfig,
                               scalars[4], cfg)
 
 
-# --- the CUDA kernel: build, bind, launch ---------------------------------
+# --- the CUDA kernel: signatures, launch ----------------------------------
 
-_lib = None
-# nvcc's output of the build this process loaded (ptxas report).
-build_log = ""
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = _nvcc.Library("colband.cu", {
+    "agatha_colband": ([_vp] * 4 + [_ci] * 15 + [_vp, _ci, _vp], _ci),
+    "agatha_colband_probe": ([_vp] * 4 + [_ci] * 8 + [_vp], _ci),
+})
 # Rows a thread of the B7 instances (csrc/colband.cu colband_kernel<R>).
 COLBAND_ROWS = (2, 4, 8)
 # Row threads a block of the instance `colband_rows` picks may have.
 COLBAND_ROW_THREADS = 384
-# Launches of the B7 kernel since import (or since a caller reset them);
-# only `colband_cuda` adds to them, once per launch: `launches` counts
-# every instance, `launches_rows[R]` the instance of R rows a thread.
-launches = 0
-launches_rows = dict.fromkeys(COLBAND_ROWS, 0)
-
-
-def build() -> ctypes.CDLL:
-    """Compile csrc/colband.cu for sm_90a (once per source) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    (lib, build_log), = _nvcc.build("colband.cu")
-    _lib = bind(lib)
-    return lib
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entries of a build of csrc/colband.cu on `lib`."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.agatha_colband.argtypes = [vp] * 4 + [ci] * 15 + [vp, ci, vp]
-    lib.agatha_colband.restype = ci
-    lib.agatha_colband_probe.argtypes = [vp] * 4 + [ci] * 8 + [vp]
-    lib.agatha_colband_probe.restype = ci
-    return lib
 
 
 def colband_rows(RW: int) -> int:
@@ -661,13 +638,7 @@ def _check_wire(scalars, tcodes, qfwd, gb):
             or scalars.dtype != torch.int32):
         raise ValueError(f"scalars must be (8, {gb}) int32, got "
                          f"{tuple(scalars.shape)} {scalars.dtype}")
-    for name, x in (("scalars", scalars), ("tcodes", tcodes),
-                    ("qfwd", qfwd)):
-        if x.device != scalars.device:
-            raise ValueError(f"{name} is on {x.device}, not "
-                             f"{scalars.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _nvcc.check(("scalars", scalars), ("tcodes", tcodes), ("qfwd", qfwd))
 
 
 def _check_shapes(shapes, cfg: AlignConfig):
@@ -696,13 +667,9 @@ def colband_cuda(scalars, tcodes, qfwd, cfg: AlignConfig, shapes, *,
     the instance cannot take the window, or the build or the launch
     fails.
     """
-    global launches
     gb = scalars.shape[1] if scalars.dim() == 2 else -1
     _check_wire(scalars, tcodes, qfwd, gb)
     _check_shapes(shapes, cfg)
-    if scalars.device.type != "cuda":
-        raise ValueError(f"colband_cuda needs CUDA tensors, got "
-                         f"{scalars.device}")
     RW, _R8pad, Qpad, _G, _gA, _gB, _tail, LEAD, WMAX = shapes
     if rows is None:
         rows = colband_rows(RW)
@@ -713,22 +680,15 @@ def colband_cuda(scalars, tcodes, qfwd, cfg: AlignConfig, shapes, *,
     out = torch.empty((gb, 4), dtype=torch.int32, device=scalars.device)
     if gb == 0:
         return out
-    lib = build()
-    dev = scalars.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    err = lib.agatha_colband(
+    LIB.launch(
+        "agatha_colband", f"colband.r{rows}",
         scalars.data_ptr(), tcodes.data_ptr(), qfwd.data_ptr(),
         out.data_ptr(), gb, 2 * tcodes.shape[1], 2 * qfwd.shape[1],
         RW, Qpad, LEAD, WMAX,
         cfg.match, cfg.mismatch, cfg.gap_oe, cfg.gap_extend,
         cfg.slice_width, cfg.z_threshold, cfg.band_width,
-        rows, None, dev, torch.cuda.current_stream(dev).cuda_stream,
+        rows, None, on=scalars,
     )
-    if err != 0:
-        raise RuntimeError(f"colband kernel launch failed: CUDA error {err}")
-    launches += 1
-    launches_rows[rows] += 1
     return out
 
 

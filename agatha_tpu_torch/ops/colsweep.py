@@ -54,7 +54,7 @@ from agatha_tpu_torch.constants import (
     N_VALUE,
 )
 from agatha_tpu_torch.ops import _nvcc
-from agatha_tpu_torch.ops.kernel import _widen, int16_safe, launch_slots
+from agatha_tpu_torch.ops.kernel import _check_wire, _widen, int16_safe
 
 _I64 = np.int64
 # E-scan fill: loses every max and cannot wrap around.
@@ -254,11 +254,14 @@ def chain_replay_torch(ring, i_end8, n_diags, end_p,
     return torch.stack([ms, mq, mr, diags], dim=1)
 
 
-# --- the CUDA kernels: build, bind, launch --------------------------------
+# --- the CUDA kernels: signatures, launch ---------------------------------
 
-_lib = None
-# nvcc's output of the build this process loaded (ptxas report).
-build_log = ""
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = _nvcc.Library("colsweep.cu", {
+    "agatha_colsweep_sweep": ([_vp] * 4 + [_ci] * 14 + [_vp], _ci),
+    "agatha_colsweep_chain": ([_vp, _vp, _vp] + [_ci] * 6 + [_vp], _ci),
+    "agatha_colsweep_occupancy": ([_ci] * 7, _ci),
+})
 # Shared memory one block may use on sm_90 (232,448 bytes).
 SMEM_LIMIT = 232448
 # Pairs (warps) per block of the sweep kernel, where they fit.
@@ -269,44 +272,6 @@ _CHAIN_WARPS = 4
 # sweep_regs_kernel<K>); a bucket whose R needs more takes the
 # shared-memory instance.
 SWEEP_REG_ROWS = tuple(range(4, 33, 4))
-# Launches of each CUDA kernel since import (or since a caller reset
-# them); only the wrappers below add to them, once per launch.
-# launches_sweep counts both sweep instances, launches_sweep_smem the
-# shared-memory one alone.
-launches_sweep = 0
-launches_sweep_smem = 0
-launches_chain = 0
-
-
-def build() -> ctypes.CDLL:
-    """Compile csrc/colsweep.cu for sm_90a (once per source) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    (lib, build_log), = _nvcc.build("colsweep.cu")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.agatha_colsweep_sweep.argtypes = [vp] * 4 + [ci] * 14 + [vp]
-    lib.agatha_colsweep_sweep.restype = ci
-    lib.agatha_colsweep_chain.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
-    lib.agatha_colsweep_chain.restype = ci
-    lib.agatha_colsweep_occupancy.argtypes = [ci] * 7
-    lib.agatha_colsweep_occupancy.restype = ci
-    _lib = lib
-    return lib
-
-
-def _device(meta):
-    dev = meta.device.index
-    return torch.cuda.current_device() if dev is None else dev
-
-
-def _check_cuda(*named):
-    dev = named[0][1].device
-    for name, x in named:
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, not {dev}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
 
 def sweep_rows(R: int) -> int:
@@ -359,24 +324,8 @@ def occupancy(shapes=None, *, chain: bool = False, device: int = 0) -> int:
     else:
         k_rows, wpb = sweep_launch(shapes)
         args = (*shapes, wpb, k_rows)
-    n = build().agatha_colsweep_occupancy(int(chain), *args, device)
-    if n < 0:
-        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
-    return n
-
-
-# Blocks resident on a card at once, by (the sweep's shapes, or None for
-# the chain, device): occupancy() times the card's SMs, queried once each.
-_resident_cache: dict[tuple, int] = {}
-
-
-def _resident(shapes, chain: bool, dev: int) -> int:
-    key = (None if chain else tuple(shapes), dev)
-    if key not in _resident_cache:
-        _resident_cache[key] = occupancy(
-            shapes, chain=chain, device=dev,
-        ) * torch.cuda.get_device_properties(dev).multi_processor_count
-    return _resident_cache[key]
+    return _nvcc.blocks_per_sm(LIB.entry("agatha_colsweep_occupancy")(
+        int(chain), *args, device))
 
 
 def _check_shapes(tcodes, qfwd, shapes):
@@ -401,10 +350,9 @@ def colsweep_sweep_cuda(meta, tcodes, qfwd, cfg: AlignConfig,
     Raises ValueError where one pair's state and ring do not fit in a
     block's shared memory (`sweep_fits`).
     """
-    global launches_sweep, launches_sweep_smem
-    _check_wire(meta, tcodes, qfwd)
+    _check_wire(meta, tcodes, qfwd, gb_unit=1)
     _check_shapes(tcodes, qfwd, shapes)
-    _check_cuda(("meta", meta), ("tcodes", tcodes), ("qfwd", qfwd))
+    _nvcc.check(("meta", meta), ("tcodes", tcodes), ("qfwd", qfwd))
     R, Q, d_pad = shapes
     per_pair = sweep_smem_bytes(R, d_pad)
     if per_pair > SMEM_LIMIT:
@@ -414,27 +362,25 @@ def colsweep_sweep_cuda(meta, tcodes, qfwd, cfg: AlignConfig,
     ring = torch.empty((gb, d_pad), dtype=torch.int32, device=meta.device)
     if gb == 0:
         return ring.t()
-    lib = build()
     k_rows, wpb = sweep_launch(shapes)
-    dev = _device(meta)
-    err = lib.agatha_colsweep_sweep(
+    dev = LIB.launch(
+        "agatha_colsweep_sweep",
+        "colsweep.sweep.regs" if k_rows else "colsweep.sweep.smem",
         meta.data_ptr(), tcodes.data_ptr(), qfwd.data_ptr(),
         ring.data_ptr(), gb, 2 * tcodes.shape[1], 2 * qfwd.shape[1],
         R, Q, d_pad, wpb, k_rows,
         cfg.match, cfg.mismatch, cfg.gap_oe, cfg.gap_extend,
-        cfg.slice_width, dev, torch.cuda.current_stream(dev).cuda_stream,
+        cfg.slice_width, on=meta,
     )
-    if err != 0:
-        raise RuntimeError(f"colsweep sweep launch failed: CUDA error {err}")
     if trace.on:
         blocks = -(-gb // wpb)
         trace.count("colsweep.buckets", 1)
         trace.count("colsweep.smem", k_rows == 0)
         trace.count("fill.sweep.blocks", blocks)
-        trace.count("fill.sweep.slots", launch_slots(
-            blocks, _resident(shapes, False, dev)))
-    launches_sweep += 1
-    launches_sweep_smem += k_rows == 0
+        trace.count("fill.sweep.slots", _nvcc.launch_slots(
+            blocks, _nvcc.resident(
+                ("colsweep.sweep", tuple(shapes)),
+                lambda: occupancy(shapes, device=dev), dev)))
     return ring.t()
 
 
@@ -445,8 +391,7 @@ def colsweep_chain_cuda(meta, ring, cfg: AlignConfig) -> torch.Tensor:
     view `colsweep_sweep_cuda` returns is taken as it is, and a ring in
     the plain version's contiguous layout is copied pair-major first.
     """
-    global launches_chain
-    _check_cuda(("meta", meta))
+    _nvcc.check(("meta", meta))
     gb = meta.shape[0]
     if (ring.dim() != 2 or ring.shape[1] != gb or ring.dtype != torch.int32
             or ring.device != meta.device):
@@ -457,21 +402,19 @@ def colsweep_chain_cuda(meta, ring, cfg: AlignConfig) -> torch.Tensor:
     if gb == 0:
         return out
     pair_major = ring.t().contiguous()  # a no-op on the sweep's view
-    lib = build()
-    dev = _device(meta)
-    err = lib.agatha_colsweep_chain(
+    dev = LIB.launch(
+        "agatha_colsweep_chain", "colsweep.chain",
         meta.data_ptr(), pair_major.data_ptr(), out.data_ptr(),
         gb, ring.shape[0], cfg.slice_width, cfg.z_threshold,
-        cfg.gap_extend, dev, torch.cuda.current_stream(dev).cuda_stream,
+        cfg.gap_extend, on=meta,
     )
-    if err != 0:
-        raise RuntimeError(f"colsweep chain launch failed: CUDA error {err}")
     if trace.on:
         blocks = -(-gb // _CHAIN_WARPS)
         trace.count("fill.chain.blocks", blocks)
-        trace.count("fill.chain.slots", launch_slots(
-            blocks, _resident(None, True, dev)))
-    launches_chain += 1
+        trace.count("fill.chain.slots", _nvcc.launch_slots(
+            blocks, _nvcc.resident(
+                ("colsweep.chain",),
+                lambda: occupancy(chain=True, device=dev), dev)))
     return out
 
 
@@ -493,7 +436,7 @@ def align_bucket_colsweep(meta, tcodes, qfwd, cfg: AlignConfig, *,
     Returns (GB, 4) int32 [score, query_end, target_end,
     diagonals_swept] on the input device, bit-identical to align_bucket.
     """
-    _check_wire(meta, tcodes, qfwd)
+    _check_wire(meta, tcodes, qfwd, gb_unit=1)
     if shapes is None:
         shapes = colsweep_shapes(meta.cpu().numpy(), tcodes, qfwd, cfg)
     _check_shapes(tcodes, qfwd, shapes)
@@ -505,17 +448,3 @@ def align_bucket_colsweep(meta, tcodes, qfwd, cfg: AlignConfig, *,
     ring = colsweep_sweep_torch(meta, tcodes, qfwd, cfg, shapes)
     return colsweep_chain_torch(meta, ring, cfg)
 
-
-def _check_wire(meta, tcodes, qfwd):
-    """The bucket wire of ops.kernel.align_bucket, without its GB % 8
-    rule: the colsweep kernels take any GB."""
-    if meta.dim() != 2 or meta.shape[1] != 2 or meta.dtype != torch.int32:
-        raise ValueError(f"meta must be (GB, 2) int32, got "
-                         f"{tuple(meta.shape)} {meta.dtype}")
-    gb = meta.shape[0]
-    for name, x in (("tcodes", tcodes), ("qfwd", qfwd)):
-        if x.dim() != 2 or x.shape[0] != gb:
-            raise ValueError(f"{name} must be (GB, X) with GB={gb}, "
-                             f"got {tuple(x.shape)}")
-        if x.dtype != torch.uint8:
-            raise ValueError(f"{name} must be uint8 nibbles, got {x.dtype}")

@@ -452,63 +452,37 @@ def align_bucket_torch(
     return result(torch.cat([ms, mq, mr, diags], dim=1))
 
 
-# --- the CUDA kernel: build, bind, launch ---------------------------------
+# --- the CUDA kernel: signatures, launch ----------------------------------
 
-_lib = None
-# nvcc's output of the build this process loaded (ptxas register and
-# shared-memory report); empty until the kernel is built.
-build_log = ""
-# Launches of the CUDA kernel since import (or since a caller reset it):
-# score-only (B1/B2) and flag-emitting (B3) instances.
-launches = 0
-launches_flags = 0
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = _nvcc.Library("antidiag.cu", {
+    "agatha_antidiag": ([_vp] * 4 + [_ci] * 13 + [_vp, _ci, _ci, _vp], _ci),
+    "agatha_antidiag_occupancy": ([_ci] * 5, _ci),
+})
 
 
-def build() -> ctypes.CDLL:
-    """Compile csrc/antidiag.cu for sm_90a (once per source) and load it.
-
-    The library goes to agatha_tpu_torch/_build/ (ops/_nvcc.py); a
-    failed build raises with nvcc's stderr.
-    """
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    (lib, build_log), = _nvcc.build("antidiag.cu")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.agatha_antidiag.argtypes = ([vp, vp, vp, vp] + [ci] * 13
-                                    + [vp, ci, ci, vp])
-    lib.agatha_antidiag.restype = ci
-    lib.agatha_antidiag_occupancy.argtypes = [ci] * 5
-    lib.agatha_antidiag_occupancy.restype = ci
-    _lib = lib
-    return lib
-
-
-def _check_wire(meta, tcodes, qfwd):
-    gb = meta.shape[0]
+def _check_wire(meta, tcodes, qfwd, *, gb_unit: int = B_PAIRS):
+    """The bucket wire: (GB, 2) int32 meta and (GB, X) uint8 nibbles,
+    GB a multiple of gb_unit (1: any GB)."""
     if meta.dim() != 2 or meta.shape[1] != 2 or meta.dtype != torch.int32:
         raise ValueError(f"meta must be (GB, 2) int32, got "
                          f"{tuple(meta.shape)} {meta.dtype}")
+    gb = meta.shape[0]
     for name, x in (("tcodes", tcodes), ("qfwd", qfwd)):
         if x.dim() != 2 or x.shape[0] != gb:
             raise ValueError(f"{name} must be (GB, X) with GB={gb}, "
                              f"got {tuple(x.shape)}")
         if x.dtype != torch.uint8:
             raise ValueError(f"{name} must be uint8 nibbles, got {x.dtype}")
-    if gb % B_PAIRS:
-        raise ValueError(f"GB={gb} is not a multiple of {B_PAIRS}")
+    if gb % gb_unit:
+        raise ValueError(f"GB={gb} is not a multiple of {gb_unit}")
 
 
 def _align_bucket_cuda(meta, tcodes, qfwd, cfg, force_strips, planes):
     """Launch the kernel; planes > 0 selects the flag-emitting instance
     and returns (out, flags), flags defined on the computed cells of
     each pair's swept planes and uninitialised elsewhere."""
-    global launches, launches_flags
-    for name, x in (("meta", meta), ("tcodes", tcodes), ("qfwd", qfwd)):
-        if x.device != meta.device:
-            raise ValueError(f"{name} is on {x.device}, meta on {meta.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _nvcc.check(("meta", meta), ("tcodes", tcodes), ("qfwd", qfwd))
     wt, qf, w_state, windowed, safe16 = _bucket_geometry(
         tcodes, qfwd, cfg, force_strips
     )
@@ -524,68 +498,30 @@ def _align_bucket_cuda(meta, tcodes, qfwd, cfg, force_strips, planes):
                             device=meta.device)
     if gb == 0:
         return (out, flags) if planes else out
-    lib = build()
-    dev = meta.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    err = lib.agatha_antidiag(
+    dev = LIB.launch(
+        "agatha_antidiag", "antidiag.flags" if planes else "antidiag.score",
         meta.data_ptr(), tcodes.data_ptr(), qfwd.data_ptr(), out.data_ptr(),
         gb, wt, qf, w_state, int(windowed), int(safe16),
         cfg.match, cfg.mismatch, cfg.gap_oe, cfg.gap_extend,
         cfg.slice_width, cfg.z_threshold, cfg.band_width,
-        flags.data_ptr() if planes else None, planes,
-        dev, torch.cuda.current_stream(dev).cuda_stream,
+        flags.data_ptr() if planes else None, planes, on=meta,
     )
-    if err != 0:
-        raise RuntimeError(f"antidiag kernel launch failed: CUDA error {err}")
     if trace.on:
+        emit = bool(planes)
         trace.count("fill.blocks", gb)
-        trace.count("fill.slots", launch_slots(
-            gb, _resident(cfg, wt, safe16, bool(planes), dev)))
-    if planes:
-        launches_flags += 1
-        return out, flags
-    launches += 1
-    return out
+        trace.count("fill.slots", _nvcc.launch_slots(gb, _nvcc.resident(
+            ("antidiag", wt, cfg.band_width, safe16, emit),
+            lambda: occupancy(cfg, wt, safe16=safe16, emit_flags=emit,
+                              device=dev), dev)))
+    return (out, flags) if planes else out
 
 
 def occupancy(cfg: AlignConfig, wt: int, *, safe16: bool,
               emit_flags: bool = False, device: int = 0) -> int:
     """Resident blocks per SM of the instance a bucket of width wt
     launches (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    n = build().agatha_antidiag_occupancy(wt, cfg.band_width, int(safe16),
-                                          int(emit_flags), device)
-    if n < 0:
-        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
-    return n
-
-
-def launch_slots(blocks: int, resident: int) -> int:
-    """Block slots a launch holds: its waves, ceil(blocks / resident),
-    times the blocks resident on the whole card at once.
-
-    blocks / launch_slots is the launch's fill by its shape (the last
-    wave's empty slots count against it), not achieved occupancy: a
-    block that a Z-drop exit ends early frees its slot unseen.
-    """
-    if resident <= 0:
-        raise ValueError(f"resident blocks must be positive, got {resident}")
-    return -(-blocks // resident) * resident
-
-
-# Blocks resident on a card at once, by (wt, band, safe16, flags, device):
-# occupancy() times the card's SMs, queried once each.
-_resident_cache: dict[tuple, int] = {}
-
-
-def _resident(cfg: AlignConfig, wt: int, safe16: bool, emit: bool,
-              dev: int) -> int:
-    key = (wt, cfg.band_width, bool(safe16), emit, dev)
-    if key not in _resident_cache:
-        _resident_cache[key] = occupancy(
-            cfg, wt, safe16=safe16, emit_flags=emit, device=dev,
-        ) * torch.cuda.get_device_properties(dev).multi_processor_count
-    return _resident_cache[key]
+    return _nvcc.blocks_per_sm(LIB.entry("agatha_antidiag_occupancy")(
+        wt, cfg.band_width, int(safe16), int(emit_flags), device))
 
 
 def align_bucket(

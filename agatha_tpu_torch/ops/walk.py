@@ -176,50 +176,26 @@ def walk_torch(flags: torch.Tensor, vbases: torch.Tensor,
     return (rows[0::2] | (rows[1::2] << 16)).T.contiguous()
 
 
-# --- the CUDA kernel: build, bind, launch ---------------------------------
+# --- the CUDA kernel: signatures, launch ----------------------------------
 
-_lib = None
-# nvcc's output of the build this process loaded; empty until built.
-build_log = ""
-# Launches of the CUDA kernel since import (or since a caller reset it).
-launches = 0
-
-
-def build() -> ctypes.CDLL:
-    """Compile csrc/walk.cu for sm_90a (once per source) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    (lib, build_log), = _nvcc.build("walk.cu")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.agatha_walk.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-    lib.agatha_walk.restype = ci
-    _lib = lib
-    return lib
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = _nvcc.Library("walk.cu", {
+    "agatha_walk": ([_vp] * 4 + [_ci] * 5 + [_vp], _ci),
+})
 
 
 def _walk_cuda(flags, vbases, ends):
-    global launches
     gb, planes, W = _check_walk(flags, vbases, ends)
-    for name, x in (("flags", flags), ("vbases", vbases), ("ends", ends)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _nvcc.check(("flags", flags), ("vbases", vbases), ("ends", ends))
     nw = words_per_pair(planes)
     words = torch.empty((gb, nw), dtype=torch.int32, device=flags.device)
     if gb == 0:
         return words
-    lib = build()
-    dev = flags.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    err = lib.agatha_walk(
+    LIB.launch(
+        "agatha_walk", "walk",
         flags.data_ptr(), vbases.data_ptr(), ends.data_ptr(),
-        words.data_ptr(), gb, planes, W, nw,
-        dev, torch.cuda.current_stream(dev).cuda_stream,
+        words.data_ptr(), gb, planes, W, nw, on=flags,
     )
-    if err != 0:
-        raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
-    launches += 1
     return words
 
 

@@ -142,8 +142,8 @@ def main(argv: list[str]) -> int:
         raise RuntimeError("antidiag_cells needs a CUDA device")
     print(device_line(), flush=True)
     print(f"package {kernel.__file__}", flush=True)
-    kernel.build()
-    regs = [line.strip() for line in kernel.build_log.splitlines()
+    kernel.LIB.load()
+    regs = [line.strip() for line in kernel.LIB.log.splitlines()
             if "registers" in line or "spill" in line
             or "Compiling entry" in line]
     print("\n".join(regs), flush=True)

@@ -21,25 +21,19 @@ stages the fewest-column bucket of `make_workload(n_pairs, mean_len,
 seed=1234)` as the engine with colband on would build it, and prints the
 card's name and power limit, then for each B7 instance that takes the
 bucket's window (R rows a thread) ns per column, ms per launch and the
-kernel's clock64 split of a column (`column_split`); then the engine's
-instance built as it is and with the other launch bound (1024 threads,
-or 416, the largest block `colband_rows` gives R = 2 or 4), timed in
-turns, with both builds' ptxas registers and spills (`bound_ab`).
+kernel's clock64 split of a column (`column_split`), then each B7
+instance's ptxas registers and spills where this process built it.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
 import re
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
 from agatha_tpu_torch.config import AlignConfig
-from agatha_tpu_torch.ops import _nvcc
 from agatha_tpu_torch.ops import colband as cb
 from agatha_tpu_torch.probes.antidiag_cells import cuda_ms
 
@@ -128,47 +122,21 @@ def instances(RW: int) -> list[int]:
             if cb.block_threads(RW, r) <= cb.max_threads(r)]
 
 
-def raw_launch(lib, args, out, cfg: AlignConfig, shapes, rows: int,
-               split=None) -> None:
-    """`agatha_colband` of `lib` (a build of csrc/colband.cu) on the
-    staged (scalars, tcodes, qfwd) into `out`, uncounted; raises on a
-    CUDA error."""
+def raw_launch(args, out, cfg: AlignConfig, shapes, rows: int,
+               split) -> None:
+    """The split instance of `rows` rows a thread (csrc/colband.cu,
+    colband_kernel<R, true>) on the staged (scalars, tcodes, qfwd) into
+    `out`, its clock64 parts into `split`; counted as
+    probe.colband_split.r<rows>."""
     scalars, tc, qf = args
     RW, _r8, Qpad, _g, _ga, _gb, _t, LEAD, WMAX = shapes
-    err = lib.agatha_colband(
+    cb.LIB.launch(
+        "agatha_colband", f"probe.colband_split.r{rows}",
         scalars.data_ptr(), tc.data_ptr(), qf.data_ptr(), out.data_ptr(),
         scalars.shape[1], 2 * tc.shape[1], 2 * qf.shape[1], RW, Qpad, LEAD,
         WMAX, cfg.match, cfg.mismatch, cfg.gap_oe, cfg.gap_extend,
         cfg.slice_width, cfg.z_threshold, cfg.band_width, rows, split,
-        torch.cuda.current_device(),
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"colband launch failed: CUDA error {err}")
-
-
-# colband_kernel's launch bound (probe_kernel has the same one)
-LAUNCH_BOUND = "__launch_bounds__(colband_max_threads(R))\ncolband_kernel("
-
-
-def bounded_build(max_threads: int):
-    """csrc/colband.cu with colband_kernel's launch bound set to
-    `max_threads` in place of `colband_max_threads(R)` (1024 for R = 2,
-    which caps a thread at 64 registers; 416 for R = 4), built for
-    sm_90a into _build/; returns (library, nvcc's ptxas report)."""
-    with open(os.path.join(_nvcc.CSRC, "colband.cu")) as f:
-        src = f.read()
-    if src.count(LAUNCH_BOUND) != 1:
-        raise RuntimeError(f"csrc/colband.cu has no single {LAUNCH_BOUND}")
-    os.makedirs(_nvcc.BUILD_DIR, exist_ok=True)
-    stem = os.path.join(_nvcc.BUILD_DIR, f"colband_bound{max_threads}")
-    with open(stem + ".cu", "w") as f:
-        f.write(src.replace(LAUNCH_BOUND, LAUNCH_BOUND.replace(
-            "colband_max_threads(R)", str(max_threads))))
-    p = subprocess.run([_nvcc._nvcc(), *_nvcc.FLAGS, "-o", stem + ".so",
-                        stem + ".cu"], capture_output=True, text=True)
-    if p.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {stem}.cu:\n{p.stderr}")
-    return cb.bind(ctypes.CDLL(stem + ".so")), p.stderr
+        on=scalars)
 
 
 def kernel_registers(log: str) -> dict:
@@ -184,37 +152,6 @@ def kernel_registers(log: str) -> dict:
             out[name] = (out.get(name, "") + " " + line.split(":")[-1]
                          .strip()).strip()
     return out
-
-
-def bound_ab(meta, tcodes, qfwd, cfg: AlignConfig, max_threads: int,
-             rounds: int = 2) -> dict:
-    """The engine's instance on one bucket as built (its bound
-    `colband_max_threads(R)`) and built with `max_threads`
-    (`bounded_build`; at least the block the engine launches), in turns
-    a, b, b, a `rounds` times: the outputs equal, CUDA-event ms of each
-    (best), and both builds' registers and spills (none for a build
-    this process found in _build/)."""
-    scalars, tc, qf, shapes = stage_bucket(meta, tcodes, qfwd, cfg)
-    rows = cb.colband_rows(shapes[0])
-    if cb.block_threads(shapes[0], rows) > max_threads:
-        raise ValueError(f"R={rows} launches more than {max_threads} "
-                         "threads at this window")
-    alt, log = bounded_build(max_threads)
-    libs = {"as built": cb.build(), f"bound {max_threads}": alt}
-    outs = {k: torch.empty((scalars.shape[1], 4), dtype=torch.int32,
-                           device="cuda") for k in libs}
-    best = dict.fromkeys(libs, float("inf"))
-    order = list(libs)
-    for _ in range(rounds):
-        for k in order + order[::-1]:
-            best[k] = min(best[k], cuda_ms(lambda: raw_launch(
-                libs[k], (scalars, tc, qf), outs[k], cfg, shapes, rows),
-                reps=10))
-    if not torch.equal(*outs.values()):
-        raise AssertionError("the two builds' outputs differ")
-    return {"rows": rows, "ms": best,
-            "registers": {"as built": kernel_registers(cb.build_log),
-                          f"bound {max_threads}": kernel_registers(log)}}
 
 
 def column_split(meta, tcodes, qfwd, cfg: AlignConfig, rows=None) -> dict:
@@ -233,7 +170,7 @@ def column_split(meta, tcodes, qfwd, cfg: AlignConfig, rows=None) -> dict:
     out = torch.empty((gb, 4), dtype=torch.int32, device="cuda")
 
     def run():
-        raw_launch(cb.build(), (scalars, tc, qf), out, cfg, shapes, rows,
+        raw_launch((scalars, tc, qf), out, cfg, shapes, rows,
                    split.data_ptr())
 
     def prod():
@@ -298,17 +235,8 @@ def main(argv: list[str] | None = None) -> int:
               f"{r['cols']}: {r['ms']:.4f} ms per launch, "
               f"{r['ns_per_col']:.3f} ns per column")
         print_split(column_split(b.meta, b.tcodes, b.qfwd, cfg, rows))
-    # the engine's instance against the other launch bound: 1024, or the
-    # largest block `colband_rows` gives R = 2 or 4
-    rows = cb.colband_rows(RW)
-    tight = cb.COLBAND_ROW_THREADS + 32
-    ab = bound_ab(b.meta, b.tcodes, b.qfwd, cfg,
-                  1024 if cb.max_threads(rows) == tight else tight)
-    print(f"launch bound, R={ab['rows']} (best of turns, ms): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ab["ms"].items()))
-    for k, regs in ab["registers"].items():
-        print(f"  ptxas {k}: " + "; ".join(
-            f"{n}: {v}" for n, v in sorted(regs.items())))
+    for name, regs in sorted(kernel_registers(cb.LIB.log).items()):
+        print(f"ptxas {name}: {regs}")
     return 0
 
 

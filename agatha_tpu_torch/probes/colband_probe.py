@@ -66,12 +66,6 @@ MATCH, MISM = 1, 4
 Z = 400
 NEG_BIG = -(1 << 28)
 
-# Launches of the probe instances since import (or a caller's reset):
-# `launches` counts every instance, `launches_rows[R]` the instances of R
-# rows a thread.
-launches = 0
-launches_rows = dict.fromkeys(cb.COLBAND_ROWS, 0)
-
 
 def _shift_down(x, s, fill):
     return torch.cat([x.new_full((s, x.shape[1]), fill), x[:-s]], dim=0)
@@ -252,8 +246,8 @@ def colband_probe_cuda(meta, prev, RW: int, ncols: int, *,
                        rows: int | None = None):
     """Launch one probe instance on the current stream; (4, N) int32,
     and with ``return_state`` the final state as the plain version
-    returns it.  `rows`: the instance's rows a thread (`probe_rows`)."""
-    global launches
+    returns it.  `rows`: the instance's rows a thread (`probe_rows`);
+    counted as probe.colband.r<rows>."""
     if RW < 8 or RW % 8 or RW > 4096 or ncols % 8 or ncols < 8:
         raise ValueError(f"RW={RW} must be a multiple of 8 in [8, 4096] "
                          f"and ncols={ncols} a positive multiple of 8")
@@ -264,29 +258,18 @@ def colband_probe_cuda(meta, prev, RW: int, ncols: int, *,
                 or not x.is_contiguous() or x.device != meta.device):
             raise ValueError(f"{name} must be a contiguous ({height}, N) "
                              f"int32 tensor on {meta.device}")
-    if meta.device.type != "cuda":
-        raise ValueError(f"colband_probe_cuda needs CUDA tensors, got "
-                         f"{meta.device}")
     n_prefix = instance_prefix(RW, n_prefix)
     out = torch.empty_like(prev)
     state = torch.empty((3 * RW + 16, n), dtype=torch.int32,
                         device=meta.device) if return_state else None
     if n == 0:
         return (out, state) if return_state else out
-    lib = cb.build()
-    dev = meta.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    err = lib.agatha_colband_probe(
+    cb.LIB.launch(
+        "agatha_colband_probe", f"probe.colband.r{rows}",
         meta.data_ptr(), prev.data_ptr(), out.data_ptr(),
         state.data_ptr() if return_state else None, n, RW, ncols,
-        int(with_chain), n_prefix, int(with_ring), rows, dev,
-        torch.cuda.current_stream(dev).cuda_stream,
+        int(with_chain), n_prefix, int(with_ring), rows, on=meta,
     )
-    if err != 0:
-        raise RuntimeError(f"colband probe launch failed: CUDA error {err}")
-    launches += 1
-    launches_rows[rows] += 1
     return (out, state) if return_state else out
 
 

@@ -40,8 +40,8 @@ import torch
 
 from agatha_tpu_torch import AlignConfig, AlignEngine, make_workload
 from agatha_tpu_torch.bench import device_line
+from agatha_tpu_torch.ops import _nvcc
 from agatha_tpu_torch.ops import colsweep as cs
-from agatha_tpu_torch.ops import kernel
 from agatha_tpu_torch.probes.antidiag_cells import cuda_ms, wall_ms
 
 CANON = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
@@ -186,10 +186,11 @@ def short_cell(mean_len: int) -> dict:
     encoded = make_workload(8192, mean_len, seed=1234, spread=0.05)
     engine = AlignEngine(cfg, device="cuda")
     engine.align(encoded)  # warm-up, builds
-    before = (kernel.launches, cs.launches_sweep, cs.launches_chain)
+    _nvcc.launches.clear()
     res = engine.align(encoded)
-    launches = [a - b for a, b in zip(
-        (kernel.launches, cs.launches_sweep, cs.launches_chain), before)]
+    launches = [_nvcc.launches["antidiag.score"],
+                _nvcc.launched("colsweep.sweep"),
+                _nvcc.launches["colsweep.chain"]]
     wall, _res = wall_ms(engine, encoded)
     timed = engine.align(encoded, per_bucket_times=True)
     split = host_split(engine, encoded)
@@ -214,8 +215,8 @@ def main(argv: list[str]) -> int:
         raise RuntimeError("colsweep_cells needs a CUDA device")
     print(device_line(), flush=True)
     print(f"package {cs.__file__}", flush=True)
-    cs.build()
-    regs = [line.strip() for line in cs.build_log.splitlines()
+    cs.LIB.load()
+    regs = [line.strip() for line in cs.LIB.log.splitlines()
             if "registers" in line or "spill" in line]
     out = {"device": device_line(), "ptxas": regs}
     if argv == ["--rows"]:

@@ -45,8 +45,6 @@ import torch
 from agatha_tpu_torch.probes import substep_probe as sp
 
 B = 8    # pairs per program of the original
-# Launches of the CUDA instances since import (or a caller's reset).
-launches = 0
 
 FRAMES = ("current", "skewed")
 MASKS = ("cell", "interval")
@@ -73,12 +71,10 @@ def skew_probe_cuda(meta, W: int, n_diags: int, *, frame: str = "current",
                     masks: str = "cell", return_state: bool = False):
     """Launch one CUDA instance on the current stream; the results of
     `skew_probe_torch`."""
-    global launches
     sw = _switches(frame, masks)
     sp.check_args(meta, W, n_diags, 1, sw["skewed"], sw["ival"])
-    res = sp.launch(meta, W, n_diags, return_state=return_state, **sw)
-    launches += 1
-    return res
+    return sp.launch("probe.skew", meta, W, n_diags,
+                     return_state=return_state, **sw)
 
 
 def skew_probe(meta, W: int, n_diags: int, **kw):

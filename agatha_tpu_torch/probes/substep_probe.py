@@ -56,8 +56,12 @@ Z = 400
 CBW = -(-BW // 8)
 FBW = (BW + 7) >> 3
 
-_lib: ctypes.CDLL | None = None
-build_log = ""  # nvcc's stderr of the build that made the library
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = _nvcc.Library("substep_probe.cu", {
+    "agatha_substep_probe": ([_vp] * 3 + [_ci] * 7 + [_vp], _ci),
+    "agatha_substep_probe_occupancy": ([_ci] * 4 + [ctypes.POINTER(_ci)],
+                                       _ci),
+})
 
 
 def _max(a, b):
@@ -347,23 +351,6 @@ def state_width(W: int, n_waves: int, skewed: bool) -> int:
     return 6 * n_waves * W + (n_waves + int(skewed)) * FEED_W
 
 
-def build() -> ctypes.CDLL:
-    """Compile csrc/substep_probe.cu for sm_90a (once per source) and
-    load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    (lib, build_log), = _nvcc.build("substep_probe.cu")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.agatha_substep_probe.argtypes = [vp] * 3 + [ci] * 6 + [ci, vp]
-    lib.agatha_substep_probe.restype = ci
-    lib.agatha_substep_probe_occupancy.argtypes = [ci] * 4 + [
-        ctypes.POINTER(ci)]
-    lib.agatha_substep_probe_occupancy.restype = ci
-    _lib = lib
-    return lib
-
-
 def check_args(meta, W: int, n_diags: int, n_waves: int, skewed: bool,
                ival: bool) -> None:
     """Raise on anything the CUDA instances do not take."""
@@ -383,43 +370,37 @@ def check_args(meta, W: int, n_diags: int, n_waves: int, skewed: bool,
                          f"{meta.device}")
 
 
-def launch(meta, W: int, n_diags: int, *, n_waves: int = 1,
+def launch(name: str, meta, W: int, n_diags: int, *, n_waves: int = 1,
            skewed: bool = False, ival: bool = False,
            return_state: bool = False):
     """Launch one CUDA instance on the current stream, one block of W / 8
     threads (rounded up to a warp) per pair (the caller checked its
-    arguments with `check_args`): (N, 4) int32, and with
-    ``return_state`` the final state as `plain` returns it."""
+    arguments with `check_args`), counted under `name`: (N, 4) int32,
+    and with ``return_state`` the final state as `plain` returns it."""
     n = meta.shape[0]
     out = torch.empty((n, 4), dtype=torch.int32, device=meta.device)
     state = torch.empty((n, state_width(W, n_waves, skewed)),
                         dtype=torch.int32,
                         device=meta.device) if return_state else None
     if n:
-        dev = meta.device.index
-        if dev is None:
-            dev = torch.cuda.current_device()
-        err = build().agatha_substep_probe(
-            meta.data_ptr(), out.data_ptr(),
+        LIB.launch(
+            "agatha_substep_probe", name, meta.data_ptr(), out.data_ptr(),
             state.data_ptr() if return_state else None, n, W, n_diags,
-            n_waves, int(skewed), int(ival), dev,
-            torch.cuda.current_stream(dev).cuda_stream,
+            n_waves, int(skewed), int(ival), on=meta,
         )
-        if err != 0:
-            raise RuntimeError(f"substep probe launch failed: CUDA error "
-                               f"{err}")
     return (out, state) if return_state else out
 
 
 def resident_blocks(W: int, n_waves: int, skewed: bool, ival: bool) -> int:
     """Blocks of this instance the card holds at once (all SMs)."""
-    per_sm = ctypes.c_int(0)
-    err = build().agatha_substep_probe_occupancy(
-        W, n_waves, int(skewed), int(ival), ctypes.byref(per_sm))
-    if err != 0:
-        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return per_sm.value * sms
+    def query():
+        per_sm = ctypes.c_int(0)
+        err = LIB.entry("agatha_substep_probe_occupancy")(
+            W, n_waves, int(skewed), int(ival), ctypes.byref(per_sm))
+        return _nvcc.blocks_per_sm(-err if err else per_sm.value)
+
+    return _nvcc.resident(("probe.substep", W, n_waves, skewed, ival), query,
+                          torch.cuda.current_device())
 
 
 def time_ms(fn, reps: int = 8, rounds: int = 3) -> float:

@@ -185,14 +185,14 @@ def main(argv: list[str]) -> int:
     print(device_line(), flush=True)
     print(f"package {kernel.__file__}", flush=True)
     out = {"device": device_line()}
-    walk.build()
-    cb.build()
-    for mod, name in ((walk, "walk.cu"), (cb, "colband.cu")):
-        regs = [line.strip() for line in mod.build_log.splitlines()
+    for lib in (walk.LIB, cb.LIB):
+        lib.load()
+        regs = [line.strip() for line in lib.log.splitlines()
                 if "registers" in line or "spill" in line
                 or "Compiling entry" in line]
-        print("\n".join(f"ptxas {name}: {x}" for x in regs), flush=True)
-        out[f"ptxas_{name}"] = regs
+        print("\n".join(f"ptxas {lib.source}: {x}" for x in regs),
+              flush=True)
+        out[f"ptxas_{lib.source}"] = regs
     if "--colband" not in argv:
         out["headline_tb"] = traceback_cell()
     out["headline_colband"] = colband_cell("headline", 1024, 10000)

@@ -44,8 +44,6 @@ import torch
 
 from agatha_tpu_torch.probes import substep_probe as sp
 
-# Launches of the CUDA instances since import (or a caller's reset).
-launches = 0
 
 
 def wave_probe_torch(meta, W: int, n_waves: int, n_diags: int, *,
@@ -62,12 +60,9 @@ def wave_probe_cuda(meta, W: int, n_waves: int, n_diags: int, *,
                     return_state: bool = False):
     """Launch one CUDA instance on the current stream; the results of
     `wave_probe_torch`."""
-    global launches
     sp.check_args(meta, W, n_diags, n_waves, False, False)
-    res = sp.launch(meta, W, n_diags, n_waves=n_waves,
-                    return_state=return_state)
-    launches += 1
-    return res
+    return sp.launch("probe.wave", meta, W, n_diags, n_waves=n_waves,
+                     return_state=return_state)
 
 
 def wave_probe(meta, W: int, n_waves: int, n_diags: int, **kw):

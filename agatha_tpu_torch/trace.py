@@ -54,7 +54,7 @@ CPU count nothing):
     fill.blocks, fill.slots  each launch of the antidiagonal kernel
                          (B1/B2/B3): its blocks, and its waves times the
                          blocks resident on the card
-                         (`ops.kernel.launch_slots`)
+                         (`ops._nvcc.launch_slots`)
     fill.sweep.blocks, fill.sweep.slots  the same of each column-sweep
                          launch (B4, `ops.colsweep`)
     fill.chain.blocks, fill.chain.slots  the same of each chain launch

@@ -410,25 +410,18 @@ def antidiag_bound(bucket, out, cfg) -> tuple[float, str]:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _nvcc.build("antidiag.cu", "colsweep.cu", "walk.cu", "colband.cu",
-                "substep_probe.cu")
-    kernel.build()
-    cs.build()
-    walk.build()
-    cb.build()
-    substep_probe.build()
+    libs = (kernel.LIB, cs.LIB, walk.LIB, cb.LIB, substep_probe.LIB)
+    _nvcc.build(*(lib.source for lib in libs))
+    for lib in libs:
+        lib.load()
     print(f"  nvcc + load (five sources, in parallel) "
           f"{time.perf_counter() - t0:.2f} s")
-    for src, log in (("antidiag.cu", kernel.build_log),
-                     ("colsweep.cu", cs.build_log),
-                     ("walk.cu", walk.build_log),
-                     ("colband.cu", cb.build_log),
-                     ("substep_probe.cu", substep_probe.build_log)):
-        for line in log.splitlines():
+    for lib in libs:
+        for line in lib.log.splitlines():
             if "Compiling entry" in line:
-                print(f"  ptxas {src}:", line.split("'")[1])
+                print(f"  ptxas {lib.source}:", line.split("'")[1])
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}:", line.strip())
+                print(f"  ptxas {lib.source}:", line.strip())
     for label, cfg, wt in (("bw 751", CANON, 10240), ("bw 2001", ONT, 76800),
                            ("bw 3000", AlignConfig(band_width=3000), 8192)):
         occ = [kernel.occupancy(cfg, wt, safe16=s16, emit_flags=em)
@@ -636,9 +629,9 @@ def phase_headline() -> dict:
     engine = AlignEngine(CANON, device="cuda")
     engine.align(encoded)  # warm-up
 
-    kernel.launches = 0
+    _nvcc.launches.clear()
     res = engine.align(encoded)
-    n_launches = kernel.launches
+    n_launches = _nvcc.launches["antidiag.score"]
     print(f"  one align(): {res.n_buckets} buckets, {n_launches} kernel "
           f"launches, routes {sorted(set(res.routes))}")
     if n_launches != res.n_buckets or n_launches == 0:
@@ -783,14 +776,14 @@ def phase_colsweep_vs_plain(rng) -> int:
         (meta[:37].copy(), tcodes[:37].copy(), qfwd[:37].copy()), CANON))
     # past bw 751: the largest register instance (R = 1024, K = 32) and
     # the shared-memory one (R > 1024)
-    smem_before = cs.launches_sweep_smem
+    smem_before = _nvcc.launches["colsweep.sweep.smem"]
     for name, lo, hi in (("the largest register instances, 900-1024 bp",
                           900, 1025),
                          ("shared memory, 1030-1120 bp", 1030, 1121)):
         pairs = short_pairs(rng, 24, lo, hi, cap=hi - 1)
         err = max(err, compare_colsweep(
             f"{name}, bw 1200", build_bucket_arrays(pairs, WIDE), WIDE))
-    if cs.launches_sweep_smem != smem_before + 1:
+    if _nvcc.launches["colsweep.sweep.smem"] != smem_before + 1:
         raise AssertionError("the shared-memory sweep instance did not run")
     return err
 
@@ -967,26 +960,18 @@ def time_bucket(b, cfg) -> dict:
                       "bound_by": chain_bound[1]}}
 
 
-def reset_counts() -> None:
-    kernel.launches = 0
-    kernel.launches_flags = 0
-    cs.launches_sweep = 0
-    cs.launches_sweep_smem = 0
-    cs.launches_chain = 0
-    walk.launches = 0
-    cb.launches = 0
-    cb.launches_rows.update(dict.fromkeys(cb.launches_rows, 0))
-    colband_probe.launches = 0
-    colband_probe.launches_rows.update(
-        dict.fromkeys(colband_probe.launches_rows, 0))
-    wave_probe.launches = 0
-    skew_probe.launches = 0
-
-
 def counts() -> tuple[int, ...]:
-    """(B1/B2, B3, B4, B5, B6) launches since reset_counts()."""
-    return (kernel.launches, kernel.launches_flags, cs.launches_sweep,
-            cs.launches_chain, walk.launches)
+    """(B1/B2, B3, B4, B5, B6) launches since `_nvcc.launches.clear()`."""
+    n = _nvcc.launches
+    return (n["antidiag.score"], n["antidiag.flags"],
+            _nvcc.launched("colsweep.sweep"), n["colsweep.chain"], n["walk"])
+
+
+def rows_launched(prefix: str) -> dict[int, int]:
+    """{R: launches of <prefix>.r<R>} of the instances launched since
+    `_nvcc.launches.clear()`."""
+    return {r: _nvcc.launches[f"{prefix}.r{r}"] for r in cb.COLBAND_ROWS
+            if _nvcc.launches[f"{prefix}.r{r}"]}
 
 
 def phase_short_reads(mean_len: int) -> dict:
@@ -995,12 +980,15 @@ def phase_short_reads(mean_len: int) -> dict:
     engine = AlignEngine(CANON, device="cuda")
     engine.align(encoded)  # warm-up
 
-    reset_counts()
+    _nvcc.launches.clear()
     res = engine.align(encoded)
-    counts = (kernel.launches, cs.launches_sweep, cs.launches_chain)
+    counts = (_nvcc.launches["antidiag.score"],
+              _nvcc.launched("colsweep.sweep"),
+              _nvcc.launches["colsweep.chain"])
     print(f"  one align(): {res.n_buckets} buckets, routes "
           f"{sorted(set(res.routes))}, launches antidiag/sweep/chain "
-          f"{counts} (shared-memory sweep {cs.launches_sweep_smem})")
+          f"{counts} (shared-memory sweep "
+          f"{_nvcc.launches['colsweep.sweep.smem']})")
     if res.routes != ["colsweep"] * res.n_buckets:
         raise AssertionError(f"routes {res.routes}")
     if counts != (0, res.n_buckets, res.n_buckets):
@@ -1308,7 +1296,7 @@ def traceback_run(name, encoded) -> dict:
     score = engine.align(encoded)  # warm-up, and the score-only result
     engine.align(encoded, traceback=True)  # warm-up
 
-    reset_counts()
+    _nvcc.launches.clear()
     res = engine.align(encoded, traceback=True)
     got = counts()
     n = res.n_buckets
@@ -1676,10 +1664,11 @@ def counted_colband_align(encoded, cfg) -> dict:
     on.align(encoded)  # warm-up
     ref = off.align(encoded)
 
-    reset_counts()
+    _nvcc.launches.clear()
     res = on.align(encoded)
-    n_launches, n_anti = cb.launches, kernel.launches
-    by_rows = {r: n for r, n in cb.launches_rows.items() if n}
+    n_launches = _nvcc.launched("colband")
+    n_anti = _nvcc.launches["antidiag.score"]
+    by_rows = rows_launched("colband")
     buckets = list(on.iter_buckets(encoded))
     RW = cb.colband_shapes(buckets[0].meta, cfg)[0]
     chosen = cb.colband_rows(RW)
@@ -1836,11 +1825,11 @@ def phase_probe(b7_instances: dict) -> dict:
         ref, ref_state = colband_probe.colband_probe_torch(
             meta, prev, 384, ncols, return_state=True, **switches)
         for rows in cb.COLBAND_ROWS:
-            before = colband_probe.launches_rows[rows]
+            before = _nvcc.launches[f"probe.colband.r{rows}"]
             got, state = colband_probe.colband_probe_cuda(
                 meta, prev, 384, ncols, return_state=True, rows=rows,
                 **switches)
-            if colband_probe.launches_rows[rows] != before + 1:
+            if _nvcc.launches[f"probe.colband.r{rows}"] != before + 1:
                 raise AssertionError(f"probe {name}: no R={rows} launch")
             e = max(int((got - ref).abs().max()),
                     int((state.to(torch.int64) - ref_state).abs().max()))
@@ -1852,7 +1841,7 @@ def phase_probe(b7_instances: dict) -> dict:
                                      "plain version")
 
     G, ncols = 8, 2048
-    reset_counts()
+    _nvcc.launches.clear()
     ns = {}
     for variants, g in ((colband_probe.VARIANTS, G),
                         (colband_probe.ABLATIONS, colband_probe.ABLATION_G)):
@@ -1865,8 +1854,8 @@ def phase_probe(b7_instances: dict) -> dict:
                   f"G {g}: {part[name]:.3f} ns per column, "
                   f"{part[name] / full:.4f} of the full variant")
         ns[g] = part
-    n_launches = colband_probe.launches
-    by_rows = {r: n for r, n in colband_probe.launches_rows.items() if n}
+    n_launches = _nvcc.launched("probe.colband")
+    by_rows = rows_launched("probe.colband")
     if set(by_rows) != {colband_probe.probe_rows(RW) for _name, RW, _sw in
                         colband_probe.VARIANTS + colband_probe.ABLATIONS}:
         raise AssertionError(f"probe launches by R {by_rows}")
@@ -1970,9 +1959,9 @@ def phase_wave_probe(rng) -> dict:
             lambda nw=nw, **kw: wave_probe.wave_probe_torch(
                 meta, 256, nw, 20, **kw)))
     G, n_diags = 32, 312 // 8
-    reset_counts()
+    _nvcc.launches.clear()
     wave_probe.run_all(G, n_diags)
-    n_launches = wave_probe.launches
+    n_launches = _nvcc.launches["probe.wave"]
     if n_launches == 0:
         raise AssertionError("P3: no instance launched")
     _name, B, W, nw, per = wave_probe.VARIANTS[0]
@@ -2005,9 +1994,9 @@ def phase_skew_probe(rng, b2_ns_per_diag: float) -> dict:
                                             masks=masks, **kw)))
     G, n_diags = 16, 2400
     meta = ragged_meta(rng, G * skew_probe.B, 11000, 13001)
-    reset_counts()
+    _nvcc.launches.clear()
     res = skew_probe.run_all(G, n_diags, meta=meta)
-    n_launches = skew_probe.launches
+    n_launches = _nvcc.launches["probe.skew"]
     if n_launches == 0:
         raise AssertionError("P4: no instance launched")
     cur = res["current"]["block_ns"]
@@ -2186,7 +2175,7 @@ def cli_phase_in(tmp: str) -> dict:
     engine = AlignEngine(CANON, device="cuda")
     encoded = engine.encode_pairs(read_fasta_pairs(ref, qry))
     engine.align(encoded)  # warm-up
-    reset_counts()
+    _nvcc.launches.clear()
     res = engine.align(encoded)
     got = counts()
     if got != (res.n_buckets, 0, 0, 0, 0):
@@ -2233,7 +2222,7 @@ def cli_phase_in(tmp: str) -> dict:
     list(stream_engine.align_stream(iter(encoded[:2048]), traceback=True))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    _nvcc.launches.clear()
     chunks = list(stream_engine.align_stream(iter_fasta_pairs(ref, qry),
                                              traceback=True))
     peak = torch.cuda.max_memory_allocated()
@@ -2361,11 +2350,11 @@ def round_robin(name, engine, single, encoded, wrapper, ref, expect, **kw):
     in turns.  Returns the result, the launches, the two walls (ms) and
     the counted align's B7 launches by rows a thread ({R: n})."""
     engine.align(encoded, **kw)  # warm-up
-    reset_counts()
+    _nvcc.launches.clear()
     with SlotSpy(engine, wrapper) as spy:
         res = engine.align(encoded, **kw)
-    got = counts() + (cb.launches,)
-    by_rows = {r: n for r, n in cb.launches_rows.items() if n}
+    got = counts() + (_nvcc.launched("colband"),)
+    by_rows = rows_launched("colband")
     nb = res.n_buckets
     if res.routes != [expect[0]] * nb or got != expect[1](nb) or nb == 0:
         raise AssertionError(f"{name}: routes {sorted(set(res.routes))}, "
@@ -2508,9 +2497,9 @@ def phase_multi(head, s150, tb_head, cb_head) -> dict:
     gb = -(-meta.shape[0] // unit) * unit
     padded = (pad_rows(meta, gb, 1), pad_rows(tcodes, gb),
               pad_rows(qfwd, gb))
-    reset_counts()
+    _nvcc.launches.clear()
     shards = align_bucket_sharded(*padded, CANON, slots)
-    launches = kernel.launches
+    launches = _nvcc.launches["antidiag.score"]
     got = torch.cat([s.to(slots[0]) for s in shards])
     ref = align_bucket(*to_cuda(*padded), CANON)
     if launches != n or not torch.equal(got, ref):
@@ -2523,7 +2512,7 @@ def phase_multi(head, s150, tb_head, cb_head) -> dict:
     # (b) the headline, sharded, both walls in turns
     sharded = pinned_engine()
     sharded.align(encoded)  # warm-up
-    reset_counts()
+    _nvcc.launches.clear()
     res = sharded.align(encoded)
     got = counts()
     nb = res.n_buckets

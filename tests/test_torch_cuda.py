@@ -26,7 +26,7 @@ from agatha_tpu_torch import (
     make_workload,
 )
 from agatha_tpu_torch.io.fasta import write_fasta
-from agatha_tpu_torch.ops import colband, colsweep, kernel, walk
+from agatha_tpu_torch.ops import _nvcc, colband, colsweep, kernel, walk
 from agatha_tpu_torch.ops.packing import encode_padded
 from agatha_tpu_torch.ops.traceback import cigar_to_pairs, score_cigar
 from agatha_tpu_torch.parallel import sharding
@@ -86,9 +86,9 @@ def test_kernel_equals_plain_and_oracle(cuda, cfg):
     pairs = _pairs(7, 16, 1, 1000)
     meta, tcodes, qfwd = kernel.build_bucket_arrays(pairs, cfg)
     args = tuple(torch.from_numpy(a).to(cuda) for a in (meta, tcodes, qfwd))
-    before = kernel.launches
+    _nvcc.launches.clear()
     got = kernel.align_bucket(*args, cfg)
-    assert kernel.launches == before + 1
+    assert _nvcc.launches["antidiag.score"] == 1
     ref = kernel.align_bucket_torch(*args, cfg)
     assert torch.equal(got, ref)
     out = got.cpu().numpy()
@@ -134,10 +134,10 @@ def test_kernel_refuses_bands_past_1024_tile_rows(cuda):
     meta, tcodes, qfwd = kernel.build_bucket_arrays(_pairs(8, 8, 10, 20),
                                                     cfg, w=9216)
     args = tuple(torch.from_numpy(a).to(cuda) for a in (meta, tcodes, qfwd))
-    before = kernel.launches
+    _nvcc.launches.clear()
     with pytest.raises(ValueError, match="tile rows"):
         kernel.align_bucket(*args, cfg)
-    assert kernel.launches == before
+    assert not _nvcc.launches
 
 
 # Satellite configs of tests/test_torch_tiles.py: slice widths 1-4,
@@ -207,10 +207,10 @@ def test_kernel_force_strips_equals_safe16(cuda):
 
 def test_engine_on_cuda_matches_cpu(cuda):
     enc = _pairs(11, 40, 50, 1500)
-    before = kernel.launches
+    _nvcc.launches.clear()
     res = AlignEngine(CANON, EngineConfig(colsweep=False),
                       device=cuda).align(enc, per_bucket_times=True)
-    assert kernel.launches == before + res.n_buckets
+    assert _nvcc.launches["antidiag.score"] == res.n_buckets
     assert len(res.bucket_ms) == res.n_buckets
     ref = AlignEngine(CANON, device="cpu").align(enc)
     for f in ("scores", "query_ends", "target_ends", "diags"):
@@ -235,15 +235,12 @@ def test_colsweep_kernels_equal_plain_and_oracle(cuda, cfg, lo, hi):
                                     2 * qfwd.shape[1], cfg)
     shapes = colsweep.colsweep_shapes(meta, tcodes, qfwd, cfg)
     args = tuple(torch.from_numpy(a).to(cuda) for a in (meta, tcodes, qfwd))
-    before = (colsweep.launches_sweep, colsweep.launches_chain,
-              colsweep.launches_sweep_smem)
+    _nvcc.launches.clear()
     ring = colsweep.colsweep_sweep_cuda(*args, cfg, shapes)
     rows = colsweep.colsweep_chain_cuda(args[0], ring, cfg)
     # a register instance (R <= 1024), and the ring a view of the
     # pair-major buffer
-    assert (colsweep.launches_sweep, colsweep.launches_chain,
-            colsweep.launches_sweep_smem) == (before[0] + 1, before[1] + 1,
-                                              before[2])
+    assert _nvcc.launches == {"colsweep.sweep.regs": 1, "colsweep.chain": 1}
     assert ring.shape == (shapes[2], meta.shape[0])
     assert ring.t().is_contiguous()
     ring_ref = colsweep.colsweep_sweep_torch(*args, cfg, shapes)
@@ -294,10 +291,10 @@ def test_colsweep_each_sweep_instance_equals_plain(cuda, k_rows, end):
     shapes = colsweep.colsweep_shapes(meta, tcodes, qfwd, COLSWEEP_WIDE)
     assert colsweep.sweep_rows(shapes[0]) == k_rows
     args = tuple(torch.from_numpy(a).to(cuda) for a in (meta, tcodes, qfwd))
-    before = (colsweep.launches_sweep, colsweep.launches_sweep_smem)
+    _nvcc.launches.clear()
     ring = colsweep.colsweep_sweep_cuda(*args, COLSWEEP_WIDE, shapes)
-    assert (colsweep.launches_sweep, colsweep.launches_sweep_smem) == (
-        before[0] + 1, before[1] + (k_rows == 0))
+    assert _nvcc.launches == {
+        "colsweep.sweep.regs" if k_rows else "colsweep.sweep.smem": 1}
     assert torch.equal(ring, colsweep.colsweep_sweep_torch(
         *args, COLSWEEP_WIDE, shapes))
     rows = colsweep.colsweep_chain_cuda(args[0], ring, COLSWEEP_WIDE)
@@ -317,26 +314,25 @@ def test_colsweep_sweep_refuses_shapes_it_cannot_hold(cuda):
     meta, tcodes, qfwd = kernel.build_bucket_arrays(pairs, CANON)
     R, Q, d_pad = colsweep.colsweep_shapes(meta, tcodes, qfwd, CANON)
     args = tuple(torch.from_numpy(a).to(cuda) for a in (meta, tcodes, qfwd))
-    before = colsweep.launches_sweep
+    _nvcc.launches.clear()
     for bad in ((2 * tcodes.shape[1] + 32, Q, d_pad), (R, Q, R + Q - 2),
                 (R, Q, colsweep.SMEM_LIMIT // 4)):
         with pytest.raises(ValueError):
             colsweep.colsweep_sweep_cuda(*args, CANON, bad)
-    assert colsweep.launches_sweep == before
+    assert not _nvcc.launches
     assert torch.equal(colsweep.align_bucket_colsweep(*args, CANON),
                        kernel.align_bucket(*args, CANON))
 
 
 def test_engine_colsweep_on_cuda_matches_cpu(cuda):
     enc = make_workload(600, 150, seed=3, spread=0.05)
-    before = (kernel.launches, colsweep.launches_sweep,
-              colsweep.launches_chain)
+    _nvcc.launches.clear()
     res = AlignEngine(CANON, device=cuda).align(enc, per_bucket_times=True)
     assert res.routes == ["colsweep"] * res.n_buckets
-    assert (kernel.launches, colsweep.launches_sweep,
-            colsweep.launches_chain) == (before[0],
-                                         before[1] + res.n_buckets,
-                                         before[2] + res.n_buckets)
+    assert (_nvcc.launches["antidiag.score"],
+            _nvcc.launched("colsweep.sweep"),
+            _nvcc.launches["colsweep.chain"]) == (0, res.n_buckets,
+                                                  res.n_buckets)
     assert len(res.bucket_ms) == res.n_buckets
     ref = AlignEngine(CANON, device="cpu").align(enc)
     assert ref.routes == res.routes
@@ -405,11 +401,10 @@ def test_flags_kernel_equals_plain(cuda, case):
     """B3: the flag-emitting kernel's results, swept planes and walked
     words equal the plain version's."""
     cfg, planes, args, vbases = _tb_bucket(cuda, case)
-    before = (kernel.launches, kernel.launches_flags)
+    _nvcc.launches.clear()
     out, flags = kernel.align_bucket(*args, cfg, emit_flags=True,
                                      planes=planes)
-    assert (kernel.launches, kernel.launches_flags) == (before[0],
-                                                        before[1] + 1)
+    assert _nvcc.launches == {"antidiag.flags": 1}
     ref, ref_flags, mask = kernel.align_bucket_torch(
         *args, cfg, emit_flags=True, planes=planes, return_mask=True)
     assert torch.equal(out, ref)
@@ -425,9 +420,9 @@ def test_walk_kernel_equals_walk_torch(cuda, case):
     cfg, planes, args, vbases = _tb_bucket(cuda, case)
     out, flags = kernel.align_bucket(*args, cfg, emit_flags=True,
                                      planes=planes)
-    before = walk.launches
+    _nvcc.launches.clear()
     words = walk.walk(flags, vbases, out)
-    assert walk.launches == before + 1
+    assert _nvcc.launches == {"walk": 1}
     assert words.shape == (out.shape[0], walk.words_per_pair(planes))
     assert torch.equal(words, walk.walk_torch(flags, vbases, out))
 
@@ -446,14 +441,15 @@ def test_engine_traceback_on_cuda_matches_cpu(cuda, monkeypatch, mode):
 
     monkeypatch.setattr(kernel, "align_bucket_torch", boom)
     monkeypatch.setattr(walk, "walk_torch", boom)
-    before = (kernel.launches, kernel.launches_flags, walk.launches)
+    _nvcc.launches.clear()
     res = AlignEngine(CANON, ecfg, device=cuda).align(
         enc, traceback=True, per_bucket_times=True)
     n = res.n_buckets
     if mode == "device":
         assert res.routes == ["walk"] * n
-        assert (kernel.launches, kernel.launches_flags, walk.launches) == (
-            before[0], before[1] + n, before[2] + n)
+        assert (_nvcc.launches["antidiag.score"],
+                _nvcc.launches["antidiag.flags"],
+                _nvcc.launches["walk"]) == (0, n, n)
     assert res.routes == ref.routes and len(res.bucket_ms) == n
     for f in ("scores", "query_ends", "target_ends", "diags"):
         assert (getattr(res, f) == getattr(ref, f)).all(), f
@@ -512,10 +508,10 @@ def test_colband_kernel_equals_plain_antidiag_and_oracle(cuda, case):
     shapes = colband.colband_shapes(meta, cfg)
     scalars = torch.from_numpy(colband.chain_scalars(meta, cfg)).to(cuda)
     args = tuple(torch.from_numpy(a).to(cuda) for a in (meta, tcodes, qfwd))
-    before = colband.launches
+    _nvcc.launches.clear()
     got = colband.align_bucket_colband(*args, cfg, shapes=shapes,
                                        scalars=scalars)
-    assert colband.launches == before + 1
+    assert _nvcc.launched("colband") == 1
     assert torch.equal(got, colband.colband_torch(scalars, args[1], args[2],
                                                   cfg, shapes))
     assert torch.equal(got, kernel.align_bucket(*args, cfg))
@@ -538,10 +534,9 @@ def test_colband_instance_equals_plain_and_oracle(cuda, case, rows):
     shapes = colband.colband_shapes(meta, cfg)
     scalars = torch.from_numpy(colband.chain_scalars(meta, cfg)).to(cuda)
     tc, qf = (torch.from_numpy(a).to(cuda) for a in (tcodes, qfwd))
-    before = (colband.launches, colband.launches_rows[rows])
+    _nvcc.launches.clear()
     got = colband.colband_cuda(scalars, tc, qf, cfg, shapes, rows=rows)
-    assert (colband.launches, colband.launches_rows[rows]) == (
-        before[0] + 1, before[1] + 1)
+    assert _nvcc.launches == {f"colband.r{rows}": 1}
     assert torch.equal(got, colband.colband_torch(scalars, tc, qf, cfg,
                                                   shapes))
     out = got.cpu().numpy()
@@ -583,7 +578,7 @@ def test_colband_refuses_bad_inputs_before_launch(cuda):
     args = tuple(torch.from_numpy(a).to(cuda) for a in (meta, tcodes, qfwd))
     shapes = colband.colband_shapes(meta, cfg)
     scalars = torch.from_numpy(colband.chain_scalars(meta, cfg))
-    before = colband.launches
+    _nvcc.launches.clear()
     with pytest.raises(ValueError):   # scalars left on the CPU
         colband.align_bucket_colband(*args, cfg, shapes=shapes,
                                      scalars=scalars)
@@ -593,7 +588,7 @@ def test_colband_refuses_bad_inputs_before_launch(cuda):
     with pytest.raises(ValueError):
         colband.align_bucket_colband(args[0], args[1].t().contiguous().t(),
                                      args[2], cfg)
-    assert colband.launches == before
+    assert not _nvcc.launches
 
 
 def test_engine_colband_on_cuda_matches_cpu(cuda, monkeypatch):
@@ -609,12 +604,13 @@ def test_engine_colband_on_cuda_matches_cpu(cuda, monkeypatch):
         raise AssertionError("plain version called on the card")
 
     monkeypatch.setattr(colband, "colband_torch", boom)
-    before = (kernel.launches, colband.launches)
+    _nvcc.launches.clear()
     res = AlignEngine(cfg, ecfg, device=cuda).align(enc,
                                                     per_bucket_times=True)
     n = res.n_buckets
     assert res.routes == ref.routes == ["colband"] * n
-    assert (kernel.launches, colband.launches) == (before[0], before[1] + n)
+    assert (_nvcc.launches["antidiag.score"],
+            _nvcc.launched("colband")) == (0, n)
     assert len(res.bucket_ms) == n
     anti = AlignEngine(cfg, EngineConfig(colsweep=False),
                        device=cuda).align(enc)
@@ -644,11 +640,10 @@ def test_probe_instances_equal_plain(cuda, variant, RW, rows):
     meta[0, 1::3] = ncols - 13
     meta[0, 2::3] = 40
     prev = prev + torch.arange(4, dtype=torch.int32, device=cuda)[:, None]
-    before = colband_probe.launches, colband_probe.launches_rows[rows]
+    _nvcc.launches.clear()
     out, state = colband_probe.colband_probe_cuda(
         meta, prev, RW, ncols, return_state=True, rows=rows, **switches)
-    assert (colband_probe.launches, colband_probe.launches_rows[rows]) == \
-        (before[0] + 1, before[1] + 1)
+    assert _nvcc.launches == {f"probe.colband.r{rows}": 1}
     ref, ref_state = colband_probe.colband_probe_torch(
         meta, prev, RW, ncols, return_state=True, **switches)
     assert torch.equal(out, ref)
@@ -661,9 +656,9 @@ def test_bench_harness_times_the_production_kernel(cuda):
     cfg = COLBAND_CASES["bw63-mixed"][0]
     meta, tcodes, qfwd = kernel.build_bucket_arrays(_pairs(52, 64, 100, 300),
                                                     cfg)
-    before = colband.launches
+    _nvcc.launches.clear()
     r = colband_bench.bench_bucket(meta, tcodes, qfwd, cfg, reps=4, rounds=2)
-    assert colband.launches == before + 1 + 2 * (4 + 2)
+    assert _nvcc.launched("colband") == 1 + 2 * (4 + 2)
     assert r["ms"] > 0 and r["ns_per_col"] > 0
     assert r["cols"] == int(meta[:, 0].max())
 
@@ -696,10 +691,10 @@ def test_wave_probe_instances_equal_plain(cuda, n_waves, W, n_diags):
     the whole final state, with ragged meta; 20 packed diagonals pass the
     feed phase's wrap, 0 returns the initial state."""
     meta = _ragged_meta(60 + n_waves, 24, 90, 462, cuda)
-    before = wave_probe.launches
+    _nvcc.launches.clear()
     out, state = wave_probe.wave_probe_cuda(meta, W, n_waves, n_diags,
                                             return_state=True)
-    assert wave_probe.launches == before + 1
+    assert _nvcc.launches == {"probe.wave": 1}
     ref, ref_state = wave_probe.wave_probe_torch(meta, W, n_waves, n_diags,
                                                  return_state=True)
     assert torch.equal(out, ref)
@@ -714,10 +709,10 @@ def test_skew_probe_instances_equal_plain(cuda, frame, masks):
     skew_probe_torch, outputs and final state, with ragged meta."""
     W = 1024 if frame == "current" else 896
     meta = _ragged_meta(70, 16, 200, 1400, cuda)
-    before = skew_probe.launches
+    _nvcc.launches.clear()
     out, state = skew_probe.skew_probe_cuda(meta, W, 20, frame=frame,
                                             masks=masks, return_state=True)
-    assert skew_probe.launches == before + 1
+    assert _nvcc.launches == {"probe.skew": 1}
     ref, ref_state = skew_probe.skew_probe_torch(
         meta, W, 20, frame=frame, masks=masks, return_state=True)
     assert torch.equal(out, ref)
@@ -726,7 +721,7 @@ def test_skew_probe_instances_equal_plain(cuda, frame, masks):
 
 def test_substep_probes_refuse_bad_inputs(cuda):
     meta = _ragged_meta(80, 8, 90, 462, cuda)
-    before = (wave_probe.launches, skew_probe.launches)
+    _nvcc.launches.clear()
     with pytest.raises(ValueError, match="CUDA tensors"):
         wave_probe.wave_probe_cuda(meta.cpu(), 256, 1, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -743,7 +738,7 @@ def test_substep_probes_refuse_bad_inputs(cuda):
         wave_probe.wave_probe_cuda(meta, 256, 3, 4)
     with pytest.raises(ValueError, match="frame"):
         skew_probe.skew_probe_cuda(meta, 1024, 4, frame="diagonal")
-    assert (wave_probe.launches, skew_probe.launches) == before
+    assert not _nvcc.launches
 
 
 # --- the command line and streaming on the card --------------------------
@@ -856,9 +851,9 @@ def test_sharded_on_two_slots_equals_one_device(cuda):
         meta, tcodes, qfwd = kernel.build_bucket_arrays(
             _pairs(31, 16, lo, hi), cfg)
         mesh = sharding.make_pairs_mesh(["cuda:0", "cuda:0"])
-        before = kernel.launches
+        _nvcc.launches.clear()
         shards = sharding.align_bucket_sharded(meta, tcodes, qfwd, cfg, mesh)
-        assert kernel.launches == before + 2
+        assert _nvcc.launches == {"antidiag.score": 2}
         assert [s.shape[0] for s in shards] == [meta.shape[0] // 2] * 2
         assert all(s.device == mesh[0] for s in shards)
         one = kernel.align_bucket(

@@ -13,6 +13,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from agatha_tpu_torch.ops import _nvcc
 from agatha_tpu_torch.probes import skew_probe, substep_probe
 
 from .test_torch_wave_probe import original, pallas_with_state, ragged_meta
@@ -84,7 +85,7 @@ def test_dispatch_and_cuda_wrapper_checks():
         skew_probe.skew_probe_cuda(meta.long(), W, 3)
     with pytest.raises(ValueError, match="frame"):
         skew_probe.skew_probe_torch(meta, W, 3, frame="diagonal")
-    assert skew_probe.launches == 0
+    assert _nvcc.launches["probe.skew"] == 0
 
 
 def test_main_needs_a_cuda_device():

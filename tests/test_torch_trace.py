@@ -14,6 +14,7 @@ the antidiagonal kernel and of the column sweep's two kernels, whose
 counting sites run here against a stand-in for the CUDA library.
 """
 
+import collections
 import json
 import sys
 import threading
@@ -25,8 +26,9 @@ import torch
 
 from agatha_tpu_torch import AlignConfig, AlignEngine, EngineConfig, SeqPair
 from agatha_tpu_torch import trace
+from agatha_tpu_torch.ops import _nvcc, kernel, walk
+from agatha_tpu_torch.ops import colband as cb
 from agatha_tpu_torch.ops import colsweep as cs
-from agatha_tpu_torch.ops import kernel
 from agatha_tpu_torch.probes.colsweep_cells import host_split
 
 torch.set_num_threads(1)
@@ -315,71 +317,89 @@ def test_counters_lose_no_update_across_threads(traced):
 
 def test_launch_slots_and_resident_blocks(monkeypatch):
     # 16 buckets of 512 blocks against 132 SMs x 3 resident: 2 waves
-    assert kernel.launch_slots(512, 396) == 792
-    assert kernel.launch_slots(396, 396) == 396
-    assert kernel.launch_slots(1, 396) == 396
-    assert kernel.launch_slots(0, 396) == 0
+    assert _nvcc.launch_slots(512, 396) == 792
+    assert _nvcc.launch_slots(396, 396) == 396
+    assert _nvcc.launch_slots(1, 396) == 396
+    assert _nvcc.launch_slots(0, 396) == 0
     with pytest.raises(ValueError):
-        kernel.launch_slots(8, 0)
+        _nvcc.launch_slots(8, 0)
     asked = []
 
-    def occupancy(cfg, wt, *, safe16, emit_flags=False, device=0):
-        asked.append((wt, safe16, emit_flags, device))
-        return 2 if emit_flags else 3
+    def query(per_sm):
+        def ask():
+            asked.append(per_sm)
+            return _nvcc.blocks_per_sm(per_sm)
+        return ask
 
-    class Props:
-        multi_processor_count = 132
-
-    monkeypatch.setattr(kernel, "occupancy", occupancy)
-    monkeypatch.setattr(kernel, "_resident_cache", {})
+    monkeypatch.setattr(_nvcc, "_residents", {})
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: Props)
     for _ in range(3):
-        assert kernel._resident(CFG, 6144, True, False, 0) == 396
-        assert kernel._resident(CFG, 6144, True, True, 0) == 264
-    assert asked == [(6144, True, False, 0), (6144, True, True, 0)]
+        assert _nvcc.resident(("antidiag", 6144, False), query(3), 0) == 396
+        assert _nvcc.resident(("antidiag", 6144, True), query(2), 0) == 264
+        assert _nvcc.resident(("antidiag", 6144, True), query(2), 1) == 264
+    # asked once per (key, device)
+    assert asked == [3, 2, 2]
     # a B3 sub-bucket of 160 pairs fills 160 of 264 slots
-    assert kernel.launch_slots(160, 264) == 264
+    assert _nvcc.launch_slots(160, 264) == 264
+    # a failed query (minus its CUDA error) raises and is not cached
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        _nvcc.resident(("antidiag", 128, False), query(-2), 0)
+    assert ("antidiag", 128, False) not in {k for k, _d in _nvcc._residents}
 
 
 class Props:
     multi_processor_count = 132
 
 
-def test_colsweep_resident_blocks(monkeypatch):
-    asked = []
+class FakeCDLL:
+    """Stands in for the build of every csrc/ source: records each call;
+    a launch returns `err`, an occupancy query its blocks per SM (16
+    sweep, 12 chain; 3 antidiagonal score, 2 flags)."""
 
-    def occupancy(shapes=None, *, chain=False, device=0):
-        asked.append((shapes, chain, device))
-        return 12 if chain else 16
+    def __init__(self):
+        self.calls = []
+        self.err = 0
 
-    monkeypatch.setattr(cs, "occupancy", occupancy)
-    monkeypatch.setattr(cs, "_resident_cache", {})
+    def __getattr__(self, entry):
+        def fn(*args):
+            self.calls.append((entry, args))
+            if entry == "agatha_colsweep_occupancy":
+                return 12 if args[0] else 16
+            if entry == "agatha_antidiag_occupancy":
+                return 2 if args[3] else 3
+            return self.err
+        setattr(self, entry, fn)
+        return fn
+
+    def asked(self, entry):
+        return [args for e, args in self.calls if e == entry]
+
+
+@pytest.fixture
+def fake_launches(monkeypatch):
+    """Every CUDA launcher on CPU tensors against one stand-in library
+    (`_nvcc.build` returns it), on device 0 of 132 SMs, with launch
+    counts and resident blocks of their own."""
+    lib = FakeCDLL()
+    lib.built = []
+
+    def build(*names):
+        lib.built += names
+        return [(lib, "")] * len(names)
+
+    monkeypatch.setattr(_nvcc, "build", build)
+    for mod in (kernel, cs, walk, cb):
+        monkeypatch.setattr(mod.LIB, "_fns", None)
+        monkeypatch.setattr(mod.LIB, "log", "")
+    monkeypatch.setattr(_nvcc, "device", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: Props)
-    for _ in range(3):
-        assert cs._resident((160, 160, 384), False, 0) == 2112
-        assert cs._resident((192, 160, 384), False, 0) == 2112
-        assert cs._resident(None, True, 0) == 1584
-        assert cs._resident(None, True, 1) == 1584
-    assert asked == [((160, 160, 384), False, 0), ((192, 160, 384), False, 0),
-                     (None, True, 0), (None, True, 1)]
-    # a 512-pair short-read bucket: 128 sweep blocks of 4 pairs and 128
-    # chain blocks of 4, one wave each
-    assert cs.sweep_launch((160, 160, 384)) == (8, 4)
-    assert kernel.launch_slots(128, 2112) == 2112
-    assert kernel.launch_slots(128, 1584) == 1584
-
-
-class FakeColsweepLib:
-    """Stands in for csrc/colsweep.cu's library: each launch succeeds
-    and computes nothing."""
-
-    def agatha_colsweep_sweep(self, *args):
-        return 0
-
-    def agatha_colsweep_chain(self, *args):
-        return 0
+    monkeypatch.setattr(_nvcc, "launches", collections.Counter())
+    monkeypatch.setattr(_nvcc, "_residents", {})
+    return lib
 
 
 def _bucket(gb, R, Q):
@@ -390,27 +410,28 @@ def _bucket(gb, R, Q):
     return meta, tcodes, qfwd, shapes
 
 
-@pytest.fixture
-def fake_launches(monkeypatch):
-    """The column sweep's CUDA wrappers on CPU tensors against the
-    stand-in library, with 16 sweep and 12 chain blocks an SM."""
-    monkeypatch.setattr(cs, "build", FakeColsweepLib)
-    monkeypatch.setattr(cs, "_device", lambda meta: 0)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda dev: Props)
-    monkeypatch.setattr(cs, "occupancy", lambda shapes=None, *, chain=False,
-                        device=0: 12 if chain else 16)
-    monkeypatch.setattr(cs, "_resident_cache", {})
-    for name in ("launches_sweep", "launches_sweep_smem", "launches_chain"):
-        monkeypatch.setattr(cs, name, getattr(cs, name))
-
-
 def _launch_both(buckets):
     for meta, tcodes, qfwd, shapes in buckets:
         ring = cs.colsweep_sweep_cuda(meta, tcodes, qfwd, CFG, shapes)
         cs.colsweep_chain_cuda(meta, ring, CFG)
+
+
+def test_colsweep_resident_blocks(fake_launches, traced):
+    """The sweep asks its occupancy once per (shapes, device), the chain
+    once per device; 16 and 12 blocks an SM of 132."""
+    short, wide = _bucket(512, 160, 160), _bucket(512, 192, 160)
+    with trace.span("launch", call=1):
+        _launch_both([short, short, wide, short])
+    _spans, counts = trace.drain()
+    assert fake_launches.asked("agatha_colsweep_occupancy") == [
+        (0, *short[3], 4, 8, 0), (1, 0, 0, 0, 1, 0, 0),
+        (0, *wide[3], 4, cs.sweep_rows(wide[3][0]), 0)]
+    # a 512-pair short-read bucket: 128 sweep blocks of 4 pairs and 128
+    # chain blocks of 4, one wave each
+    assert cs.sweep_launch(short[3]) == (8, 4)
+    assert counts[1, "fill.sweep.slots"] == 4 * 2112
+    assert counts[1, "fill.chain.slots"] == 4 * 1584
+    assert fake_launches.built == ["colsweep.cu"]
 
 
 def test_colsweep_launches_count_their_fill(fake_launches, traced):
@@ -434,15 +455,121 @@ def test_colsweep_launches_count_their_fill(fake_launches, traced):
     }
     # the antidiagonal kernel's counters stay its own
     assert not any(k.startswith("fill.blocks") for _c, k in counts)
+    assert _nvcc.launches == {"colsweep.sweep.regs": 1,
+                              "colsweep.sweep.smem": 1,
+                              "colsweep.chain": 2}
 
 
 def test_colsweep_launches_count_nothing_with_tracing_off(fake_launches):
     trace.drain()
-    before = cs.launches_sweep, cs.launches_chain
     _launch_both([_bucket(64, 160, 160)])
     assert trace.drain() == ([], {})
-    assert (cs.launches_sweep, cs.launches_chain) == (before[0] + 1,
-                                                       before[1] + 1)
+    assert _nvcc.launches == {"colsweep.sweep.regs": 1, "colsweep.chain": 1}
+    assert _nvcc.launched("colsweep.sweep") == 1
+    assert not fake_launches.asked("agatha_colsweep_occupancy")
+
+
+def _antidiag_bucket(gb):
+    """gb pairs of 8 x 8 on the narrowest wire (W 128, QF 384)."""
+    meta = torch.full((gb, 2), 8, dtype=torch.int32)
+    return (meta, torch.zeros((gb, 64), dtype=torch.uint8),
+            torch.zeros((gb, 192), dtype=torch.uint8))
+
+
+def test_antidiag_launches_count_their_fill(fake_launches, traced):
+    """400 pairs (one block each) against 396 score / 264 flags blocks
+    resident: two waves each; each instance asks its occupancy once."""
+    bucket = _antidiag_bucket(400)
+    with trace.span("launch", call=5):
+        for planes in (0, 0, 256, 256):
+            kernel._align_bucket_cuda(*bucket, CFG, False, planes)
+    _spans, counts = trace.drain()
+    assert counts == {(5, "fill.blocks"): 4 * 400,
+                      (5, "fill.slots"): 2 * 792 + 2 * 528}
+    assert _nvcc.launches == {"antidiag.score": 2, "antidiag.flags": 2}
+    assert fake_launches.asked("agatha_antidiag_occupancy") == [
+        (128, CFG.band_width, 1, 0, 0), (128, CFG.band_width, 1, 1, 0)]
+    launch = fake_launches.asked("agatha_antidiag")[-1]
+    assert launch[4] == 400 and launch[-3:] == (256, 0, 0)  # planes, dev,
+    assert fake_launches.built == ["antidiag.cu"]            # stream
+    assert fake_launches.agatha_antidiag.argtypes == \
+        kernel.LIB.signatures["agatha_antidiag"][0]
+
+
+def _walk_inputs(gb, planes=4, W=128):
+    return (torch.zeros((gb, planes * W), dtype=torch.int32),
+            torch.zeros(planes, dtype=torch.int32),
+            torch.zeros((gb, 4), dtype=torch.int32))
+
+
+def test_walk_launch_counts(fake_launches):
+    words = walk._walk_cuda(*_walk_inputs(24))
+    assert words.shape == (24, walk.words_per_pair(4))
+    assert walk._walk_cuda(*_walk_inputs(0)).shape[0] == 0
+    assert _nvcc.launches == {"walk": 1}
+    (args,) = fake_launches.asked("agatha_walk")
+    assert args[4:] == (24, 4, 128, walk.words_per_pair(4), 0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flags, vbases, ends = _walk_inputs(24)
+        walk._walk_cuda(flags, vbases, ends.t().contiguous().t())
+    assert _nvcc.launches == {"walk": 1}
+    assert fake_launches.built == ["walk.cu"]
+
+
+def _colband_inputs(gb=8, q=200, r=240):
+    meta = np.array([[q, r]] * gb, np.int32)
+    shapes = cb.colband_shapes(meta, CFG)
+    return (torch.from_numpy(cb.chain_scalars(meta, CFG)),
+            torch.zeros((gb, shapes[1] // 2), dtype=torch.uint8),
+            torch.zeros((gb, shapes[2] // 2), dtype=torch.uint8), shapes)
+
+
+def test_colband_launches_count_by_rows(fake_launches):
+    scalars, tcodes, qfwd, shapes = _colband_inputs()
+    rows = cb.colband_rows(shapes[0])
+    cb.colband_cuda(scalars, tcodes, qfwd, CFG, shapes)
+    cb.colband_cuda(scalars, tcodes, qfwd, CFG, shapes, rows=8)
+    assert _nvcc.launches == collections.Counter(
+        {f"colband.r{rows}": 1}) + collections.Counter({"colband.r8": 1})
+    assert _nvcc.launched("colband") == 2
+    assert [a[-4:] for a in fake_launches.asked("agatha_colband")] == [
+        (rows, None, 0, 0), (8, None, 0, 0)]
+    assert fake_launches.built == ["colband.cu"]
+
+
+def _launch_sweep(meta, tcodes, qfwd, shapes):
+    return cs.colsweep_sweep_cuda(meta, tcodes, qfwd, CFG, shapes)
+
+
+FAILING = {
+    "antidiag.score": lambda: kernel._align_bucket_cuda(
+        *_antidiag_bucket(8), CFG, False, 0),
+    "antidiag.flags": lambda: kernel._align_bucket_cuda(
+        *_antidiag_bucket(8), CFG, False, 256),
+    "colsweep.sweep.regs": lambda: _launch_sweep(*_bucket(8, 160, 160)),
+    "colsweep.chain": lambda: cs.colsweep_chain_cuda(
+        _bucket(8, 160, 160)[0], torch.zeros((384, 8), dtype=torch.int32),
+        CFG),
+    "walk": lambda: walk._walk_cuda(*_walk_inputs(8)),
+    "colband.r8": lambda: cb.colband_cuda(*_colband_inputs()[:3], CFG,
+                                          _colband_inputs()[3], rows=8),
+}
+
+
+@pytest.mark.parametrize("name", list(FAILING))
+def test_failed_launch_raises_and_counts_nothing(fake_launches, traced,
+                                                 name):
+    """A non-zero return raises RuntimeError naming the instance and its
+    CUDA error, counts no launch and no fill."""
+    fake_launches.err = 719
+    with pytest.raises(RuntimeError,
+                       match=rf"^{name} launch failed: CUDA error 719$"):
+        FAILING[name]()
+    assert not _nvcc.launches
+    assert trace.drain() == ([], {})
+    fake_launches.err = 0
+    FAILING[name]()
+    assert _nvcc.launches == {name: 1}
 
 
 def test_host_split_keys_on_the_cpu():

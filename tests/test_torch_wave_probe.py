@@ -21,6 +21,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from agatha_tpu_torch.ops import _nvcc
 from agatha_tpu_torch.probes import substep_probe, wave_probe
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(
@@ -140,7 +141,7 @@ def test_dispatch_and_cuda_wrapper_checks():
         wave_probe.wave_probe_cuda(meta.long(), W, 2, 3)
     with pytest.raises(ValueError, match="n_waves"):
         wave_probe.wave_probe_torch(meta, W, 3, 3)
-    assert wave_probe.launches == 0
+    assert _nvcc.launches["probe.wave"] == 0
 
 
 def test_main_needs_a_cuda_device():
